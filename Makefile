@@ -2,7 +2,7 @@
 #
 # Role parity with the reference's Makefile (reference: Makefile:118-142,
 # targets lib/test/benchmark/wheel/docs/lint), adapted to this framework:
-# the TPU compute path is JAX/XLA/Pallas (nothing to compile), the native
+# the device path is JAX/XLA/Pallas (nothing to build ahead), the native
 # CPU engine builds from cc/nufft_cpu.cc, and protos regenerate with protoc.
 
 PYTHON ?= python

@@ -1,8 +1,7 @@
 // Native CPU spread/interp engine for tensorflow_nufft_tpu.
 //
-// Role: the host-side numerical core for paths the TPU cannot serve —
-// float64 / tolerances below 1e-7 (TPU f64 is emulated), and a fast CPU
-// fallback. Counterpart of the reference's CPU spreader/interpolator
+// Role: the host-side numerical core (backend='native'): float64 down to
+// tolerances of 1e-14 on the host, and a fast CPU path. Counterpart of the reference's CPU spreader/interpolator
 // (reference: tensorflow_nufft/cc/kernels/nufft_plan.cc:883-1806), but
 // re-designed: spreading is parallelized by *output slab ownership*
 // (each thread owns a contiguous band of leading-axis rows and

@@ -16,7 +16,7 @@ MD = [
 A radial multicoil acquisition, reconstructed two ways: the classic
 density-compensated adjoint ("gridding") and iterative CG-SENSE. This is
 the notebook counterpart of the reference's `docs/examples/mri_app.ipynb`
-(mrphys/tensorflow-nufft), built on the TPU-native planar API.
+(mrphys/tensorflow-nufft), built on the planar API.
 
 An idealized MRI scanner samples the Fourier transform of the object
 along a k-space trajectory; non-Cartesian (radial/spiral) sampling lands
@@ -27,15 +27,15 @@ $$ y_m = \\sum_k x_k\\, e^{-i\\, k \\cdot \\xi_m} $$
     """## 1. Set up a synthetic acquisition
 
 Everything is *planar* (a trailing `(re, im)` axis of size 2) — the
-TPU-native representation; `from_planar` converts back to complex NumPy
+pipeline the spread kernel serves; `from_planar` converts back to complex NumPy
 for plotting.""",
     """## 2. The forward model (type-2 NUFFT)
 
 `SenseNufft` bundles coil-sensitivity weighting with the NUFFT: the
 forward operator is $y_c = F_{nu}(S_c \\odot x)$ per coil $c$. Under the
 hood: one batched `tfft.planar.nufft(..., transform_type="type_2")` over
-the coil dimension — on TPU, the Pallas interp kernel consuming fused
-amplify+DFT tile blocks.""",
+the coil dimension — an amplify + DFT contraction, then XLA's gather
+at the k-space points.""",
     """## 3. Density-compensated adjoint ("gridding")
 
 Radial sampling is densest at the k-space center; re-weighting by the
@@ -63,8 +63,8 @@ CG only ever needs the *normal* operator $A^H W A$, which is
 shift-invariant on the image grid: it equals convolution with a kernel
 computed by ONE type-1 NUFFT of the weights onto the doubled grid. With
 `toeplitz=True` each CG iteration is pure FFT-domain multiplication — no
-spread/interp at all (measured on TPU v5e: 1.2 ms vs 9.5 ms per
-10-iteration recon for the composed planned pair).""",
+spread/interp at all (its time on the H100: not measured yet; the
+composed planned pair is the comparison).""",
     """## 7. Beyond the grid: type-3 transforms
 
 Point scatterers at *continuous* (off-grid) positions measured on an
@@ -75,11 +75,11 @@ implemented.""",
     """## 8. Scaling notes
 
 - **Fixed trajectory, many applies** (CG, training loops): build a
-  `tfft.planar.PlannedNufft(points, grid, ...)` once and call it; on TPU
-  each apply then runs a pure DMA + MXU kernel stream.
+  `tfft.planar.PlannedNufft(points, grid, ...)` once and call it: the
+  fold and the tile binning then run once, not per apply.
 - **Many coils / frames**: the coil dimension is an inner-vectorized
-  batch — one plan execution, MXU-batched kernels.
-- **Multi-chip**: shard coils over a mesh `data` axis and k-space over a
+  batch — one plan execution, channel-grouped spread kernel.
+- **Multi-device**: shard coils over a mesh `data` axis and k-space over a
   `points` axis with `tensorflow_nufft_tpu.parallel.sharded_nufft`, or
   shard the image grid itself with `sharded_nufft_grid`.""",
 ]

@@ -5,7 +5,7 @@ Runnable-script counterpart of the reference's flagship example notebook
 with the type-2 NUFFT, then reconstruct with (a) the density-compensated
 adjoint and (b) iterative CG-SENSE through the operator's gradients.
 
-Run on CPU or TPU:
+Run on CPU or GPU:
     python docs/examples/mri_app.py
 """
 

@@ -30,9 +30,9 @@ setup(
     install_requires=[
         "jax>=0.4.30",
         "numpy",
-        "pydantic>=2",
-        "protobuf",
     ],
+    # Options.to_proto/from_proto only.
+    extras_require={"proto": ["protobuf"]},
     classifiers=[
         "Development Status :: 4 - Beta",
         "Intended Audience :: Science/Research",

@@ -1,10 +1,10 @@
-"""TPU-native non-uniform fast Fourier transform for JAX.
+"""Non-uniform fast Fourier transform for JAX, run on NVIDIA GPUs.
 
 A from-scratch re-design of the capabilities of mrphys/tensorflow-nufft
-(reference exports: tensorflow_nufft/__init__.py:17-20) on the TPU stack:
-jit-compiled XLA pipelines, Pallas kernels for the spread/interp hot loops,
-custom-VJP autodiff, NumPy-style batching/broadcasting, and multi-chip
-sharding via ``jax.sharding``.
+(reference exports: tensorflow_nufft/__init__.py:17-20) in JAX:
+jit-compiled XLA pipelines, a tile-exclusive spread kernel (Pallas through
+Triton) for the type-1 hot loop, custom-VJP autodiff, NumPy-style
+batching/broadcasting, and multi-device sharding via ``jax.sharding``.
 
 Typical usage::
 

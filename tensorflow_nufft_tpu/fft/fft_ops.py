@@ -1,8 +1,8 @@
 """FFT, deconvolution and amplification stages of the NUFFT.
 
 The reference plans FFTW/cuFFT transforms at plan-creation time
-(cc/kernels/nufft_plan.cc:364-430, nufft_plan.cu.cc:2227-2285); on TPU the
-XLA FFT needs no planning. Mode reordering between CMCL (centered) order
+(cc/kernels/nufft_plan.cc:364-430, nufft_plan.cu.cc:2227-2285); XLA's
+FFT (cuFFT on a GPU) needs no planning here. Mode reordering between CMCL (centered) order
 and the FFT's wrap order is pure slicing/concatenation, which XLA fuses —
 no gather/scatter needed (contrast cc/kernels/nufft_plan.cc:705-881).
 

@@ -1,15 +1,14 @@
-"""Planar (split re/im) DFT via MXU matmuls.
+"""Planar (split re/im) DFT via dense matmuls.
 
-The live TPU path cannot use XLA's FFT (complex dtypes are not supported
-by the backend), and complex arithmetic is in any case emulated pairwise
-on TPU. This module computes the DFT of planar tensors — real arrays with
-a trailing re/im channel — as dense matmuls against precomputed
-cosine/sine twiddle matrices, which map straight onto the MXU.
+Computes the DFT of planar tensors — real arrays with a trailing re/im
+channel — as dense per-axis contractions against precomputed
+cosine/sine twiddle matrices. The pruned forms fuse mode truncation or
+zero-padding and the kernel deconvolution into the same contraction.
 
 For the fine-grid sizes this framework targets (hundreds per axis), a
-dense per-axis DFT is O(N) matmul work per element and runs at MXU rate;
-precision is forced to HIGHEST (f32 accumulation) because the TPU default
-would use bf16 multiplies (~2e-3 error, far above tolerance).
+dense per-axis DFT is O(N) matmul work per element. Precision is forced
+to HIGHEST (float32 products): a float32 matmul at default precision may
+run in TF32 on a GPU (about three decimal digits, far above tolerance).
 
 Replaces the FFTW/cuFFT stage of the reference
 (cc/kernels/nufft_plan.cc:364-430; fftw_api.h).
@@ -83,215 +82,6 @@ def dft_truncate_deconvolve(x: jax.Array, plan,
         s = jnp.asarray(s_np, x.dtype)
         xr, xi = _contract_planar(xr, xi, c, s, 1 + d, precision)
     return jnp.stack([xr, xi], axis=-1)
-
-
-def _ext_mode_twiddles(nf: int, n: int, num_tiles: int, tile: int,
-                       pad: int, sign: float, weights: np.ndarray,
-                       truncating: bool) -> tuple:
-    """Like _mode_twiddles but over the *tile-extended* axis layout.
-
-    Row (ti, e) of the extended axis corresponds to global fine index
-    g = (ti*tile + e - pad) mod nf. Contracting tile-extended data with
-    these matrices computes overlap-add (duplicate g rows sum) + DFT +
-    truncation + deconvolution in a single matmul, so the per-tile halo
-    merge never materializes in memory.
-    """
-    k = np.arange(n) - n // 2
-    slots = np.mod(k, nf)
-    ti = np.repeat(np.arange(num_tiles), tile + 2 * pad)
-    e = np.tile(np.arange(tile + 2 * pad), num_tiles)
-    g = np.mod(ti * tile + e - pad, nf)                  # [nt*E]
-    ang = (2.0 * np.pi / nf) * np.outer(g, slots)        # [nt*E, n]
-    c = np.cos(ang) * weights[None, :]
-    s = sign * np.sin(ang) * weights[None, :]
-    if truncating:
-        return c, s
-    return c.T.copy(), s.T.copy()
-
-
-# Historical note: an earlier fused formulation contracted 2-D
-# [nt*E, n] matrices against a pre-transposed [B2, nt0*E0, ...] layout;
-# the pre/post transposes made it pathological at 3D scale (529 ms
-# steady, ~20 min compile on v5e). The pair-contraction below keeps the
-# fusion but contracts (tile, ext) axis PAIRS on the kernels' native
-# layout, which removes the relayouts entirely.
-
-
-def dft_truncate_deconvolve_tiled(tiles: jax.Array, plan, geom,
-                                  batch: int,
-                                  precision=jax.lax.Precision.HIGHEST
-                                  ) -> jax.Array:
-    """Type-1 post-stage directly from per-tile extended spread output.
-
-    Contracts each (tile, ext) axis pair of the kernel's native
-    [*tiles, B2, *ext] layout with a wrap-aware [nt_d, E_d, n_d]
-    twiddle tensor — one two-contracting-dim dot_general per planar
-    part per axis. The periodic overlap-add of tile halos happens
-    implicitly: extended rows that alias the same fine-grid index get
-    identical twiddle rows and the contraction is linear. No fold or
-    relayout of the tile array ever materializes — the previous
-    overlap_add + per-axis-DFT formulation spent ~20 of its 32 ms at
-    3D 256^3 scale in the 7-D transpose (v5e; pairdot total 11.8 ms).
-
-    Args:
-        tiles: [*tiles, B2, *ext] float (B2 = 2*batch folded channels,
-            row order (b, ch)).
-
-    Returns:
-        [batch, *grid_shape, 2] planar modes (CMCL).
-    """
-    if plan.rank == 3 and tiles.dtype == jnp.float32:
-        # Rank-3 pair contractions run ~5x off roofline in XLA (the
-        # (nt_d, E_d) relayout of the tile array moves at ~60 GB/s on
-        # v5e regardless of contraction order); the Pallas pass chain
-        # streams the native layout instead (kernels/pallas_dft.py).
-        from tensorflow_nufft_tpu.kernels import pallas_dft
-        if pallas_dft.supported(geom, plan.grid_shape):
-            return pallas_dft.dft_truncate_deconvolve_tiled_pallas(
-                tiles, plan, geom, batch)
-    return dft_truncate_deconvolve_tiled_xla(tiles, plan, geom, batch,
-                                             precision)
-
-
-def dft_truncate_deconvolve_tiled_xla(tiles: jax.Array, plan, geom,
-                                      batch: int,
-                                      precision=jax.lax.Precision.HIGHEST
-                                      ) -> jax.Array:
-    """XLA pair-contraction formulation (all ranks; the rank-3 oracle
-    for kernels/pallas_dft.py and the fallback for geometries the
-    Pallas passes do not serve)."""
-    rank = plan.rank
-    sign = -1.0 if plan.spec.fft_direction == "forward" else 1.0
-    xs = tiles.reshape(geom.tiles + (batch, 2) + geom.ext)
-    ext_all = (slice(None),) * rank
-    xr = xs[(Ellipsis, 0) + ext_all]         # [*tiles, batch, *ext]
-    xi = xs[(Ellipsis, 1) + ext_all]
-    for d in range(rank):
-        c_np, s_np = _ext_mode_twiddles(
-            plan.fine_shape[d], plan.grid_shape[d], geom.tiles[d],
-            geom.tile[d], geom.pad, sign, plan.deconv_weights(d),
-            truncating=True)
-        nt, e = geom.tiles[d], geom.ext[d]
-        c = jnp.asarray(c_np.reshape(nt, e, -1), xr.dtype)
-        smc = jnp.asarray((s_np - c_np).reshape(nt, e, -1), xr.dtype)
-        spc = jnp.asarray((s_np + c_np).reshape(nt, e, -1), xr.dtype)
-        # Remaining layout: [nt_d.., batch, E_d.., n_0..d-1]; the
-        # current tile axis is 0 and its ext axis sits right after the
-        # batch axis.
-        ext_pos = (rank - d) + 1
-        dn = (((0, ext_pos), (0, 1)), ((), ()))
-
-        def dot(a, m):
-            return jax.lax.dot_general(
-                a, m, dn, preferred_element_type=a.dtype,
-                precision=precision)
-
-        # Gauss 3-multiplication complex contraction: the (s-c)/(s+c)
-        # matrices are precomputed statics, so one matmul is saved per
-        # planar rotation (measured ~8% on the 3D post-stage).
-        t1 = dot(xr + xi, c)
-        t2 = dot(xr, smc)
-        t3 = dot(xi, spc)
-        xr, xi = t1 - t3, t1 + t2
-    return jnp.stack([xr, xi], axis=-1)
-
-
-def _amplify_embed(modes: jax.Array, plan) -> jax.Array:
-    """[B, *grid, 2] CMCL modes -> [B, *fine, 2] fine-grid spectrum:
-    separable multiply by the deconvolution weights, then zero-pad into
-    the fine grid at the wrapped CMCL slots (mode i at fine index
-    (i - n//2) mod nf: place at [0, n) and roll by -(n//2)). Cheap
-    elementwise + slicing; the DFT itself then runs on clean
-    power-of-two axes (kept for stage-bisection tooling)."""
-    rank = plan.rank
-    x = modes
-    for d in range(rank):
-        n = plan.grid_shape[d]
-        nf = plan.fine_shape[d]
-        ax = 1 + d
-        w_shape = [1] * x.ndim
-        w_shape[ax] = n
-        x = x * jnp.asarray(plan.deconv_weights(d),
-                            x.dtype).reshape(w_shape)
-        pad_widths = [(0, 0)] * x.ndim
-        pad_widths[ax] = (0, nf - n)
-        x = jnp.pad(x, pad_widths)
-        x = jnp.roll(x, -(n // 2), axis=ax)
-    return x
-
-
-def amplify_pad_dft_tiled(modes: jax.Array, plan, geom,
-                          precision=jax.lax.Precision.HIGHEST
-                          ) -> jax.Array:
-    """Type-2 pre-stage producing per-tile extended fine-grid blocks.
-
-    Dual of ``dft_truncate_deconvolve_tiled``: each mode axis is
-    expanded with a wrap-aware [n_d, nt_d, E_d] twiddle tensor, so the
-    amplify weights, zero-pad, DFT, *and* the per-tile halo duplication
-    are all one matmul chain — the full fine grid never materializes.
-    The one relayout left is the final transpose of the contraction
-    output to the kernels' tiles-major layout, which XLA fuses into the
-    last dot's epilogue (measured v5e 3D 256^3: 12.3 ms total vs
-    29.7 ms for the embed + fine-DFT + extend_tiles formulation this
-    replaces).
-
-    Args:
-        modes: [batch, *grid_shape, 2] planar CMCL modes.
-
-    Returns:
-        [*tiles, B2, *ext] float blocks ready for the interp kernel.
-    """
-    if plan.rank == 3 and modes.dtype == jnp.float32:
-        # Same rationale as dft_truncate_deconvolve_tiled: the rank-3
-        # expansion chain is relayout-bound in XLA; the Pallas dual
-        # passes write the tiles-major output directly.
-        from tensorflow_nufft_tpu.kernels import pallas_dft
-        if pallas_dft.supported(geom, plan.grid_shape):
-            return pallas_dft.amplify_pad_dft_tiled_pallas(
-                modes, plan, geom)
-    return amplify_pad_dft_tiled_xla(modes, plan, geom, precision)
-
-
-def amplify_pad_dft_tiled_xla(modes: jax.Array, plan, geom,
-                              precision=jax.lax.Precision.HIGHEST
-                              ) -> jax.Array:
-    """XLA expansion-chain formulation (all ranks; the rank-3 oracle
-    for kernels/pallas_dft.py and the fallback for geometries the
-    Pallas passes do not serve)."""
-    rank = plan.rank
-    sign = -1.0 if plan.spec.fft_direction == "forward" else 1.0
-    batch = modes.shape[0]
-    xr, xi = modes[..., 0], modes[..., 1]
-    for d in range(rank):
-        c_np, s_np = _ext_mode_twiddles(
-            plan.fine_shape[d], plan.grid_shape[d], geom.tiles[d],
-            geom.tile[d], geom.pad, sign, plan.deconv_weights(d),
-            truncating=False)              # [n_d, nt_d*E_d]
-        nt, e = geom.tiles[d], geom.ext[d]
-        c = jnp.asarray(c_np.reshape(-1, nt, e), xr.dtype)
-        smc = jnp.asarray((s_np - c_np).reshape(-1, nt, e), xr.dtype)
-        spc = jnp.asarray((s_np + c_np).reshape(-1, nt, e), xr.dtype)
-        # Contract the current leading mode axis; its (nt, E) pair
-        # lands at the back, giving [B, nt_0, E_0, .., n_d+1..] order.
-        dn = (((1,), (0,)), ((), ()))
-
-        def dot(a, m):
-            return jax.lax.dot_general(
-                a, m, dn, preferred_element_type=a.dtype,
-                precision=precision)
-
-        # Gauss 3-multiplication complex contraction (see
-        # dft_truncate_deconvolve_tiled).
-        t1 = dot(xr + xi, c)
-        t2 = dot(xr, smc)
-        t3 = dot(xi, spc)
-        xr, xi = t1 - t3, t1 + t2
-    # [B, nt0, E0, nt1, E1, ..] x2 -> [nt_0.., B2, E_0..]
-    x = jnp.stack([xr, xi], axis=1)
-    x = x.reshape((batch * 2,) + x.shape[2:])
-    perm = [1 + 2 * d for d in range(rank)] + [0] + \
-        [2 + 2 * d for d in range(rank)]
-    return jnp.transpose(x, perm)
 
 
 def amplify_pad_dft(x: jax.Array, plan,

@@ -1,8 +1,9 @@
-"""Compute kernels: XLA reference path and Pallas TPU kernels.
+"""Compute kernels: the XLA scatter/gather path and the GPU spread kernel.
 
 ``xla_ops`` is the portable, always-correct path built from XLA
-scatter/gather; the Pallas modules provide the TPU speed-of-light path and
-are selected by ``dispatch`` when profitable.
+scatter/gather; ``triton_spread`` is the tile-exclusive type-1 spread
+kernel (Pallas through Triton), selected by ``dispatch`` where it was
+measured faster.
 """
 
 from tensorflow_nufft_tpu.kernels.xla_ops import (

@@ -1,21 +1,23 @@
-"""Tile binning for the Pallas spread/interp kernels (XLA preprocessing).
+"""Tile binning for the tile-exclusive spread kernel (XLA preprocessing).
 
-TPU has no scatter atomics, so the Pallas kernels use *tile-exclusive*
-accumulation: points are assigned to fine-grid tiles, the kernel visits
-tiles sequentially (TPU Pallas grids are sequential), and each tile's
-extended (halo-padded) block is owned by exactly one run of programs.
-Halos are then combined by a deterministic XLA overlap-add with periodic
-wrap.
+The spread kernel (``kernels/triton_spread.py``) gives each fine-grid
+tile to exactly one program, which accumulates the tile's halo-padded
+("extended") block with no atomics. Points are therefore grouped by
+tile first: a stable sort by tile id, then a per-tile padding of the
+point stream up to a multiple of the chunk size, giving at most
+``M // chunk + num_tiles`` chunks — a static bound that holds for any
+point distribution. Halos are combined afterwards by a deterministic
+overlap-add with periodic wrap.
 
-This replaces the reference's counting sorts + subproblem decomposition
-(cc/kernels/nufft_plan.cc:432-652, nufft_plan.cu.cc:159-320,2896-3032)
-with a design that is overflow-free under static shapes: the point
-stream, grouped by tile, is padded at tile boundaries up to a multiple of
-the chunk size, giving at most ``M // chunk + num_tiles`` chunks — a
-static bound that holds for any point distribution. No comparison sort is
-used (tile ranks come from a one-hot prefix sum), and data movement is
-expressed as gathers (TPU gathers are far cheaper than scatters; a single
-small int32 scatter builds the inverse map).
+This is the design of the reference's GPU SUBPROBLEM spreader (counting
+sort into bins, bins split into bounded subproblems,
+cc/kernels/nufft_plan.cu.cc:159-320,2896-3032), with each tile's chunks
+walked by one program instead of one block per subproblem.
+
+Extended tile dims are powers of two (what the kernel's block shapes
+need); the core tile is ``ext - 2 * pad`` and need not divide the fine
+grid: the last tile along an axis runs past the grid edge and its
+excess wraps periodically like any halo.
 
 Supports ranks 1, 2 and 3.
 """
@@ -33,18 +35,25 @@ import numpy as np
 # weights evaluate to exactly zero.
 SENTINEL = -1.0e6
 
-# Rough VMEM budget for one extended tile block (elements, per channel
-# pair): keeps ext blocks ~<=1 MB f32.
-_EXT_BLOCK_BUDGET = 160 * 160
+# Default extended tile dims and chunk sizes per rank. 2D: a 32 x 32
+# block (a 24^2 core at the tol-1e-6 halo of 4) and chunks of 64 points
+# keep the [E, C] x [C, E] product on tensor-core shapes; 3D: 16x16x32
+# blocks and 32-point chunks keep the [E0*E1, E2] accumulator at 256 x
+# 32 per channel in registers. On an H100 at the benchmark shapes these
+# beat both smaller blocks (more halo to overlap-add: 16^3 cost 0.6 ms
+# more at 128^3/800k) and larger ones (64^2 and 32^3 spill registers and
+# run ten times slower).
+_DEFAULT_EXT = {1: (64,), 2: (32, 32), 3: (16, 16, 32)}
+_DEFAULT_CHUNK = {1: 64, 2: 64, 3: 32}
 
 
 @dataclasses.dataclass(frozen=True)
 class TileGeometry:
     """Static tiling parameters (any rank)."""
     fine_shape: Tuple[int, ...]
-    tile: Tuple[int, ...]          # core tile dims (divide fine dims)
+    ext: Tuple[int, ...]           # extended (halo-padded) tile dims
     pad: int                       # halo on each side
-    chunk: int                     # points per kernel invocation
+    chunk: int                     # points per kernel loop step
     num_chunks: int                # static chunk-count bound
 
     @property
@@ -52,164 +61,54 @@ class TileGeometry:
         return len(self.fine_shape)
 
     @property
+    def tile(self) -> Tuple[int, ...]:
+        """Core tile dims (the points a tile owns)."""
+        return tuple(e - 2 * self.pad for e in self.ext)
+
+    @property
     def tiles(self) -> Tuple[int, ...]:
-        return tuple(nf // t for nf, t in zip(self.fine_shape, self.tile))
+        return tuple(-(-nf // t) for nf, t in zip(self.fine_shape,
+                                                   self.tile))
 
     @property
     def num_tiles(self) -> int:
         return int(np.prod(self.tiles))
 
     @property
-    def ext(self) -> Tuple[int, ...]:
-        """Extended (halo-padded) tile dims."""
-        return tuple(t + 2 * self.pad for t in self.tile)
+    def num_slots(self) -> int:
+        return self.num_chunks * self.chunk
 
 
-_TILE_PREFS = {
-    1: (1024, 768, 512, 1280, 256, 1536, 2048, 128, 64, 32, 16),
-    # 64 first: E = 72 fits one 128-lane tile and the v5e sweep showed
-    # tile=64 beating 128 by ~40% on the spread kernel (smaller matmuls,
-    # same lane footprint).
-    2: (64, 96, 128, 160, 192, 256, 320, 32, 16),
-}
-# Rank-3 prefs are per axis POSITION: the last (lane) axis wants
-# E = tile + 2*pad near the 128-lane width (lane utilization of the
-# contribution matmuls — E=40 uses 31% of the output lanes, E=72 56%),
-# while the leading two want small E (the Khatri-Rao fold's MXU rows
-# scale as E0*E1/8). Measured on v5e 128^3/800k: (16,16,64) runs the
-# spread 25% and the tiled mode-DFT 60% faster than the old
-# smallest-volume-first choice (8,32,32).
-_TILE_PREFS_3D = (
-    (16, 8, 24, 32, 40, 64, 48, 96, 128),     # leading axis
-    (16, 24, 32, 40, 8, 64, 48, 96, 128),     # middle axis
-    (64, 48, 96, 80, 40, 32, 128, 24, 16),    # last (lane) axis
-)
-# Banded rank-3 prefs (planned path, compute_band_origins): the
-# per-sub-chunk axis-0 band decouples the fold's FLOPs from the
-# leading tile length, so axis 0 goes coarse — fewer tiles means less
-# per-tile chunk padding (smaller values-payload gather) at no MXU
-# cost. Middle/lane prefs match _TILE_PREFS_3D.
-_TILE_PREFS_3D_BANDED = (
-    (128, 256, 64, 96, 192, 32, 16, 8),       # leading axis (banded)
-    (16, 24, 32, 40, 8, 64, 48, 96, 128),     # middle axis
-    (64, 48, 96, 80, 40, 32, 128, 24, 16),    # last (lane) axis
-)
-
-
-# Process-wide tuning overrides (benchmarking/experiments). Keys:
-# 'chunk', 'tile_pref' (single preferred tile for every axis), 'tile'
-# (full per-axis tile tuple). Values of 0/None mean auto.
-_GEOMETRY_OVERRIDES = {"chunk": 0, "tile_pref": 0, "tile": None}
-
-
-def set_geometry_overrides(chunk: int = 0, tile_pref: int = 0,
-                           tile=None) -> None:
-    """Overrides automatic chunk/tile selection (0/None = auto).
-    Affects subsequent traces only."""
-    _GEOMETRY_OVERRIDES["chunk"] = chunk
-    _GEOMETRY_OVERRIDES["tile_pref"] = tile_pref
-    _GEOMETRY_OVERRIDES["tile"] = tile
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def choose_geometry(fine_shape: Sequence[int], width: int,
-                    num_points: int, chunk: int = 0,
-                    tile_pref: int = 0,
-                    banded: bool = False) -> TileGeometry:
-    """Picks tile dims that divide the fine grid and a chunk size.
+                    num_points: int, ext: Sequence[int] = (),
+                    chunk: int = 0) -> TileGeometry:
+    """Tile geometry for a fine grid, kernel width and point count.
 
-    The halo must cover the kernel footprint: a point owned by a tile can
-    touch indices down to ceil(s - w/2) >= tile_start - (w//2 + 1), so
-    pad = width//2 + 1; bands in the overlap-add need tile >= 2*pad.
-
-    Chunk-size tradeoff (measured on v5e): each kernel program has a few
-    microseconds of fixed overhead, so chunks should be large; but the
-    per-tile padding waste is bounded by num_tiles * chunk points, so
-    chunks should stay a fraction of num_points / num_tiles.
+    The halo must cover the kernel footprint: a point owned by a tile
+    touches indices from ceil(s - w/2) >= tile_start - w//2 up to
+    < tile_end + w/2, so pad = w//2 + 1. Each extended dim is the rank's
+    default, grown to the next power of two where the halo would leave
+    a core tile narrower than 8.
     """
     fine_shape = tuple(int(n) for n in fine_shape)
-    chunk = chunk or _GEOMETRY_OVERRIDES["chunk"]
-    tile_pref = tile_pref or _GEOMETRY_OVERRIDES["tile_pref"]
     rank = len(fine_shape)
-    # Halo covering the kernel footprint, rounded up to a multiple of 4
-    # so extended dims stay sublane-aligned (E = tile + 2*pad with tiles
-    # chosen as multiples of 8): DMA slices need 8-sublane alignment.
-    pad = -(-(width // 2 + 1) // 4) * 4
-    tile_override = _GEOMETRY_OVERRIDES["tile"]
-    if tile_override is not None:
-        tile = tuple(int(t) for t in tile_override)
-        if len(tile) != rank or any(
-                nf % t or t < 2 * pad
-                for nf, t in zip(fine_shape, tile)):
-            raise ValueError(
-                f"tile override {tile} invalid for fine shape "
-                f"{fine_shape} (must divide each dim and be >= "
-                f"{2 * pad})")
-    else:
-        tile = []
-        for d, nf in enumerate(fine_shape):
-            if rank == 3:
-                prefs = (_TILE_PREFS_3D_BANDED if banded
-                         else _TILE_PREFS_3D)[d]
-            else:
-                prefs = _TILE_PREFS[rank]
-            prefs = ((tile_pref,) if tile_pref else ()) + prefs
-            t = nf
-            for cand in prefs:
-                if cand and nf % cand == 0 and cand >= 2 * pad:
-                    t = cand
-                    break
-            tile.append(t)
-        tile = tuple(tile)
-    num_tiles = int(np.prod([nf // t for nf, t in zip(fine_shape, tile)]))
-    if chunk == 0:
-        # Aim for ~25% padding waste worst-case, in [256, 2048].
-        target = max(num_points // (2 * num_tiles), 1)
-        chunk = int(min(2048, max(256, 2 ** int(np.ceil(np.log2(target))))))
-    # Keep the per-chunk kernel matrices within a VMEM budget (~2 MB):
-    # they have chunk * sum(ext) float32 elements.
-    sum_ext = sum(t + 2 * pad for t in tile)
-    vmem_cap = max(256, ((2 << 20) // (4 * sum_ext)) // 256 * 256)
-    chunk = min(chunk, vmem_cap)
-    if rank == 3:
-        # The streaming rank-3 kernels fold the Khatri-Rao product in
-        # 128-lane sub-chunks through a VMEM staging ref
-        # (pallas_spread.accumulate_spread_subchunk), so the kernel
-        # stack no longer ties chunk size to E0*E1. 1024 keeps the
-        # NBUF payload buffers plus the staging ref within the
-        # streaming VMEM budget. Banded plans prefer 512: the v5e
-        # sweep (128^3/800k, tile (128,16,64)) measured 14.4 ms vs
-        # 15.4 at 1024 — less chunk padding (smaller values-payload
-        # gather) and tighter per-sub-chunk bands outweigh the extra
-        # per-chunk overhead.
-        chunk = min(chunk, 512 if banded else 1024)
-    chunk = min(chunk, max(64, int(np.ceil(num_points / 64)) * 64))
-    if rank == 3:
-        # Sub-chunk fold: chunk must be a multiple of the 128-lane
-        # sub-chunk (or smaller than one).
-        if chunk > 128:
-            chunk = -(-chunk // 128) * 128
-    num_chunks = num_points // chunk + num_tiles
-    return TileGeometry(fine_shape, tile, pad, chunk, num_chunks)
-
-
-def geometry_valid(geom: TileGeometry) -> bool:
-    """Whether the tile/pad geometry supports the periodic overlap-add:
-    each tile must cover both halo bands (tile >= 2*pad). Fine dims
-    smaller than 2*pad cannot be tiled — choose_geometry's fallback
-    tile = nf then violates the invariant and the fold would slice out
-    of bounds. Callers must fall back to the XLA path (or raise) when
-    this is False."""
-    return all(t >= 2 * geom.pad for t in geom.tile)
-
-
-def ranking_is_exact(geom: TileGeometry) -> bool:
-    """Whether the one-hot/prefix-sum f32 ranking arithmetic in
-    ``bin_points`` is exact for this geometry. Slot indices reach
-    ``num_chunks * chunk``; float32 integer arithmetic is exact only
-    below 2**24. Beyond that ``bin_points`` switches to the sort-based
-    int32 ranking (``_ranks_and_starts_bigm``), exact to 2**31 — the
-    Pallas path keeps serving, just with a costlier binning pass."""
-    return geom.num_chunks * geom.chunk < 2 ** 24
+    pad = width // 2 + 1
+    if not ext:
+        ext = tuple(max(e, _pow2_at_least(2 * pad + 8))
+                    for e in _DEFAULT_EXT[rank])
+    ext = tuple(int(e) for e in ext)
+    if len(ext) != rank or any(e & (e - 1) or e <= 2 * pad for e in ext):
+        raise ValueError(
+            f"extended tile dims {ext} must be {rank} powers of two "
+            f"larger than twice the halo {pad}")
+    chunk = int(chunk or _DEFAULT_CHUNK[rank])
+    tiles = [-(-nf // (e - 2 * pad)) for nf, e in zip(fine_shape, ext)]
+    num_chunks = int(num_points) // chunk + int(np.prod(tiles))
+    return TileGeometry(fine_shape, ext, pad, chunk, num_chunks)
 
 
 class BinnedPoints(NamedTuple):
@@ -217,238 +116,34 @@ class BinnedPoints(NamedTuple):
     points_hi: jax.Array    # [M, rank] coordinate high words
     points_lo: jax.Array    # [M, rank] coordinate low words
     padpos: jax.Array       # [M] slot of each point in the padded stream
-    invpos: jax.Array       # [num_chunks * chunk] point index of each
-    #                         slot (M for padded slots) — the inverse of
-    #                         padpos; payload builds gather through it
-    chunk_tidx: Tuple[jax.Array, ...]  # per-axis tile index per chunk
+    invpos: jax.Array       # [num_slots] point index of each slot (M for
+    #                         padded slots): the inverse of padpos
     tile_bounds: jax.Array  # [num_tiles + 1] chunk range of each tile:
     #                         tile t owns chunks [b[t], b[t+1])
 
 
-# Segment size for the tile-rank computation (see bin_points): cost is
-# ~SEGMENT bytes of traffic per point.
-_SEGMENT = 128
+def tile_ids(points_hi: jax.Array, geom: TileGeometry) -> jax.Array:
+    """[M] linear (row-major) id of the tile owning each point."""
+    tid = None
+    for d in range(geom.rank):
+        td = jnp.clip((points_hi[:, d] // geom.tile[d]).astype(jnp.int32),
+                      0, geom.tiles[d] - 1)
+        tid = td if tid is None else tid * geom.tiles[d] + td
+    return tid
 
 
-# Above this tile count the one-hot multiply-reduce tables in
-# _ranks_and_starts (cost ~ M * num_tiles elements of fused traffic)
-# lose to plain scatter/gather (cost ~ M): the 3D 128^3 geometry has
-# 2048 tiles, where the one-hot intermediates reach ~6 GB.
-_ONEHOT_MAX_TILES = 128
-
-
-def _ranks_and_starts(tid: jax.Array, num_tiles: int, chunk: int):
-    """Stable rank of each point within its tile and the per-point chunk
-    base slot, without sorting.
-
-    Points are cut into segments of _SEGMENT; within a segment the rank
-    comes from a strict-lower-triangular equality count (a [G, S, S]
-    elementwise reduce), and across segments from per-(segment, tile)
-    count prefix sums. For small tile counts all tid-indexed table
-    lookups are expressed as one-hot multiply-reduces — per-element
-    gathers from small tables are surprisingly expensive on TPU
-    (~4 ns/index vs microseconds for the whole one-hot reduce); past
-    _ONEHOT_MAX_TILES the one-hot tensors ([G, S, T+1]) dominate and
-    the scatter/gather form wins. Counts stay < 2^24 so float32
-    arithmetic is exact in both forms (ranking_is_exact guards this).
-
-    Returns (rank [M] int32, counts [T] int32, chunk_base [M] int32,
-    chunk_starts [T] int32) where chunk_base = chunk_starts[tid] * chunk.
-    """
-    m = tid.shape[0]
-    s = _SEGMENT
-    g = -(-m // s)
-    pad = g * s - m
-    # Padded entries get the virtual tile `num_tiles` (dropped later).
-    tid_p = jnp.concatenate(
-        [tid, jnp.full((pad,), num_tiles, tid.dtype)]) if pad else tid
-    tid3 = tid_p.reshape(g, s)
-
-    # Within-segment rank: strict lower-triangular equality count
-    # (tile-count independent).
-    eq = (tid3[:, :, None] == tid3[:, None, :])
-    lower = (jax.lax.broadcasted_iota(jnp.int32, (s, s), 0)
-             < jax.lax.broadcasted_iota(jnp.int32, (s, s), 1))
-    rank_in_seg = jnp.sum(
-        (eq & lower[None]).astype(jnp.int32), axis=1)        # [G, S]
-
-    if num_tiles + 1 <= _ONEHOT_MAX_TILES:
-        onehot = (tid3[:, :, None] ==
-                  jnp.arange(num_tiles + 1,
-                             dtype=tid.dtype)[None, None, :]
-                  ).astype(jnp.float32)                      # [G, S, T+1]
-        seg_counts = jnp.sum(onehot, axis=1)                 # [G, T+1]
-        cum = jax.lax.associative_scan(jnp.add, seg_counts, axis=0)
-        seg_prefix = cum - seg_counts                        # exclusive
-        counts_f = cum[-1]
-        rounds = jnp.maximum(jnp.ceil(counts_f / chunk), 1.0)
-        chunk_starts_f = jnp.cumsum(rounds) - rounds         # [T+1]
-        prefix_of_point = jnp.sum(
-            onehot * seg_prefix[:, None, :], axis=2)
-        chunk_base = jnp.sum(
-            onehot * (chunk_starts_f * chunk)[None, None, :], axis=2)
-    else:
-        # Scatter/gather form: one 1D scatter-add builds the
-        # per-(segment, tile) histogram, per-point table reads are 1D
-        # gathers through the flattened [G*(T+1)] layout.
-        seg_id = jax.lax.broadcasted_iota(jnp.int32, (g, s), 0)
-        flat_idx = (seg_id * (num_tiles + 1)
-                    + tid3.astype(jnp.int32)).reshape(g * s)
-        seg_counts = jnp.zeros((g * (num_tiles + 1),), jnp.float32
-                               ).at[flat_idx].add(1.0).reshape(
-            g, num_tiles + 1)
-        cum = jax.lax.associative_scan(jnp.add, seg_counts, axis=0)
-        seg_prefix = cum - seg_counts                        # exclusive
-        counts_f = cum[-1]
-        rounds = jnp.maximum(jnp.ceil(counts_f / chunk), 1.0)
-        chunk_starts_f = jnp.cumsum(rounds) - rounds         # [T+1]
-        prefix_of_point = seg_prefix.reshape(g * (num_tiles + 1)
-                                             )[flat_idx].reshape(g, s)
-        chunk_base = (chunk_starts_f * chunk)[
-            tid3.reshape(g * s)].reshape(g, s)
-
-    rank = (rank_in_seg
-            + prefix_of_point.astype(jnp.int32)).reshape(g * s)[:m]
-    chunk_base = chunk_base.astype(jnp.int32).reshape(g * s)[:m]
-    counts = counts_f.astype(jnp.int32)[:num_tiles]
-    chunk_starts = chunk_starts_f.astype(jnp.int32)[:num_tiles]
-    return rank, counts, chunk_base, chunk_starts
-
-
-def _ranks_and_starts_celled(tid: jax.Array, zc: jax.Array,
-                             num_tiles: int, zcells: int, chunk: int):
-    """_ranks_and_starts with a secondary axis-0 cell key: points are
-    ordered within their tile by ``zc`` (then arrival), while chunking
-    stays per TILE. This is what lets the rank-3 banded kernels bound
-    each sub-chunk's axis-0 span (see compute_band_origins).
-
-    Composite keys make the one-hot tables impractical, so this always
-    uses the scatter/gather form (cf. _ranks_and_starts). Returns
-    (rank_within_tile [M], tile counts [T], chunk_base [M],
-    chunk_starts [T]) — the same contract as _ranks_and_starts.
-    """
-    nk = num_tiles * zcells
-    key = tid * zcells + zc
-    m = key.shape[0]
-    s = _SEGMENT
-    g = -(-m // s)
-    pad = g * s - m
-    key_p = jnp.concatenate(
-        [key, jnp.full((pad,), nk, key.dtype)]) if pad else key
-    key3 = key_p.reshape(g, s)
-
-    eq = (key3[:, :, None] == key3[:, None, :])
-    lower = (jax.lax.broadcasted_iota(jnp.int32, (s, s), 0)
-             < jax.lax.broadcasted_iota(jnp.int32, (s, s), 1))
-    rank_in_seg = jnp.sum(
-        (eq & lower[None]).astype(jnp.int32), axis=1)        # [G, S]
-
-    seg_id = jax.lax.broadcasted_iota(jnp.int32, (g, s), 0)
-    flat_idx = (seg_id * (nk + 1)
-                + key3.astype(jnp.int32)).reshape(g * s)
-    seg_counts = jnp.zeros((g * (nk + 1),), jnp.float32
-                           ).at[flat_idx].add(1.0).reshape(g, nk + 1)
-    cum = jax.lax.associative_scan(jnp.add, seg_counts, axis=0)
-    seg_prefix = cum - seg_counts                            # exclusive
-    counts_f = cum[-1]                                       # [nk+1]
-
-    key_counts = counts_f[:nk].reshape(num_tiles, zcells)
-    tile_counts_f = jnp.sum(key_counts, axis=1)              # [T]
-    rounds = jnp.maximum(jnp.ceil(tile_counts_f / chunk), 1.0)
-    chunk_starts_f = jnp.cumsum(rounds) - rounds             # [T]
-    # Exclusive cell prefix within each tile; one combined per-key
-    # table folds in the tile's chunk base so points need ONE gather.
-    cellpref = (jnp.cumsum(key_counts, axis=1)
-                - key_counts).reshape(nk)                    # [nk]
-    base_table = jnp.concatenate(
-        [cellpref, jnp.zeros((1,), jnp.float32)])            # [nk+1]
-    prefix_of_point = seg_prefix.reshape(
-        g * (nk + 1))[flat_idx].reshape(g, s)
-    cell_base = base_table[key_p.astype(jnp.int32)].reshape(g, s)
-    chunk_base_tbl = jnp.concatenate(
-        [chunk_starts_f * chunk, jnp.zeros((1,), jnp.float32)])
-    tid_p = jnp.minimum(key_p // zcells, num_tiles).astype(jnp.int32)
-    chunk_base = chunk_base_tbl[tid_p].reshape(g, s)
-
-    rank = (rank_in_seg + (prefix_of_point + cell_base).astype(jnp.int32)
-            ).reshape(g * s)[:m]
-    chunk_base = chunk_base.astype(jnp.int32).reshape(g * s)[:m]
-    counts = tile_counts_f.astype(jnp.int32)
-    chunk_starts = chunk_starts_f.astype(jnp.int32)
-    return rank, counts, chunk_base, chunk_starts
-
-
-def _ranks_and_starts_bigm(tid: jax.Array, num_tiles: int, chunk: int,
-                           zc=None, zcells: int = 1):
-    """Sort-based ranking for point sets beyond the f32-exact regime
-    (``ranking_is_exact(geom)`` False, M*padding >= 2**24 slots — the
-    10M+-point 3D MRI/CT regime).
-
-    The prefix-sum forms above keep everything in f32 (their one-hot /
-    per-segment-histogram tables are the measured-fast shape at
-    M ~ 1e5-1e6), but past 2**24 slots the f32 arithmetic silently
-    misplaces points AND the [M/128, T+1] histogram reaches GB scale.
-    Here one stable ``argsort`` over the (tile, cell) key groups the
-    points, per-tile ranks come from a segmented iota over the sorted
-    stream (boundary-max scan, no per-segment tables), and every count
-    is int32 — exact to 2**31 slots. O(M log^2 M) bitonic sort work vs
-    the prefix forms' O(M), so this only serves as the big-M path.
-
-    Returns (padpos [M] int32 in point order, counts [T] int32,
-    chunk_starts [T] int32).
-    """
-    m = tid.shape[0]
-    key = tid if zc is None else tid * zcells + zc
-    order = jnp.argsort(key, stable=True)            # slot -> point
-    tid_sorted = tid[order]
-    counts = jnp.zeros((num_tiles,), jnp.int32).at[tid].add(
-        1, mode="drop")
-    rounds = jnp.maximum((counts + chunk - 1) // chunk, 1)
-    chunk_starts = jnp.cumsum(rounds) - rounds       # [T] int32
-    # Rank within tile = position since the tile's first sorted slot
-    # (a running max of boundary positions; stable sort keeps arrival
-    # order within equal keys, matching the prefix-sum forms).
-    iota = jnp.arange(m, dtype=jnp.int32)
-    boundary = jnp.concatenate(
-        [jnp.ones((1,), bool), tid_sorted[1:] != tid_sorted[:-1]])
-    tile_start = jax.lax.associative_scan(
-        jax.lax.max, jnp.where(boundary, iota, 0))
-    padpos_sorted = (chunk_starts[tid_sorted] * chunk
-                     + (iota - tile_start))
-    padpos = jnp.zeros((m,), jnp.int32).at[order].set(
-        padpos_sorted, unique_indices=True)
-    return padpos, counts, chunk_starts
-
-
-def sort_cell_size(geom: TileGeometry) -> int:
-    """Axis-0 cell size for z-ordered binning: fine enough that a
-    128-point sub-chunk's axis-0 span stays tight, coarse enough that
-    the composite-key tables (num_tiles * zcells keys) stay small."""
-    t0 = geom.tile[0]
-    cell = max(2, t0 // 32)
-    while t0 % cell:
-        cell += 1
-    return cell
-
-
-def bin_points(points_resc, geom: TileGeometry,
-               zorder: bool = False) -> BinnedPoints:
+def bin_points(points_resc, geom: TileGeometry) -> BinnedPoints:
     """Groups points by tile and builds the padded chunk stream.
 
     Args:
         points_resc: coordinates in fine-grid units ([0, nf)): a
             [M, rank] array or a two-float (hi, lo) pair (see
-            ``xla_ops.fold_and_rescale_split``; the low word restores
-            full coordinate precision inside the kernels).
+            ``xla_ops.fold_and_rescale_split``).
         geom: static tiling.
-        zorder: order points within each tile by their axis-0 cell
-            (see sort_cell_size) instead of arrival order — required
-            by the rank-3 banded kernels, whose per-sub-chunk axis-0
-            bands assume consecutive slots have nearby coordinates.
-            Any within-tile order is correct for every consumer.
 
     Returns:
         BinnedPoints with static shapes independent of the distribution.
+        Points keep their arrival order within a tile (stable sort).
     """
     if isinstance(points_resc, tuple):
         points_hi, points_lo = points_resc
@@ -456,357 +151,84 @@ def bin_points(points_resc, geom: TileGeometry,
         points_hi = points_resc
         points_lo = jnp.zeros_like(points_resc)
     m = points_hi.shape[0]
-    rank = geom.rank
-    tiles = geom.tiles
-    num_tiles = geom.num_tiles
     chunk = geom.chunk
-    num_chunks = geom.num_chunks
-
-    tidx = []
-    for d in range(rank):
-        td = jnp.clip(
-            (points_hi[:, d] // geom.tile[d]).astype(jnp.int32),
-            0, tiles[d] - 1)
-        tidx.append(td)
-    tid = tidx[0]
-    for d in range(1, rank):
-        tid = tid * tiles[d] + tidx[d]
-
-    zc, zcells = None, 1
-    if zorder:
-        cell = sort_cell_size(geom)
-        zcells = geom.tile[0] // cell
-        zc = jnp.clip(
-            (points_hi[:, 0] // cell).astype(jnp.int32)
-            - tidx[0] * (geom.tile[0] // cell), 0, zcells - 1)
-    if not ranking_is_exact(geom):
-        padpos_raw, counts, chunk_starts = _ranks_and_starts_bigm(
-            tid, num_tiles, chunk, zc=zc, zcells=zcells)
-    elif zorder:
-        rank_in_tile, counts, chunk_base, chunk_starts = \
-            _ranks_and_starts_celled(tid, zc, num_tiles, zcells, chunk)
-        padpos_raw = chunk_base + rank_in_tile
-    else:
-        rank_in_tile, counts, chunk_base, chunk_starts = \
-            _ranks_and_starts(tid, num_tiles, chunk)
-        padpos_raw = chunk_base + rank_in_tile
-    # Materialize once: several scatters consume padpos, and XLA's
-    # scatter fusion would otherwise duplicate the whole ranking chain
-    # into each of them (measured as a 2-3x pipeline slowdown).
-    padpos = jax.lax.optimization_barrier(padpos_raw)
-
-    # Chunk -> tile mapping; chunks beyond the used range attach to the
-    # last used tile (contiguous run, so no spurious re-initialization).
-    chunk_ids = jnp.arange(num_chunks, dtype=jnp.int32)
-    chunk_tile = jnp.searchsorted(
-        chunk_starts.astype(jnp.int32), chunk_ids, side="right") - 1
-    chunk_tile = jnp.clip(chunk_tile, 0, num_tiles - 1)
-
-    chunk_tidx = []
-    rem = chunk_tile
-    for d in range(rank - 1, -1, -1):
-        chunk_tidx.append((rem % tiles[d]).astype(jnp.int32))
-        rem = rem // tiles[d]
-    chunk_tidx = tuple(reversed(chunk_tidx))
-
-    rounds_i = jnp.maximum((counts + chunk - 1) // chunk, 1)
-    tile_bounds = jnp.concatenate(
-        [chunk_starts,
-         (chunk_starts[-1] + rounds_i[-1])[None]]).astype(jnp.int32)
-
-    # Inverse slot map: ONE cheap 1D int32 scatter (4 ns/index class).
-    # Every payload build then moves data by gather — wide-row scatters
-    # measured ~50 ns/index at M=200k, 25x the whole spread kernel.
-    invpos = jnp.full((num_chunks * chunk,), m, jnp.int32)
-    invpos = invpos.at[padpos].set(
+    tid = tile_ids(points_hi, geom)
+    order = jnp.argsort(tid, stable=True)                # sorted -> point
+    counts = jnp.zeros((geom.num_tiles,), jnp.int32).at[tid].add(1)
+    first = jnp.cumsum(counts) - counts                  # [T] sorted start
+    rounds = (counts + chunk - 1) // chunk
+    chunk_start = jnp.cumsum(rounds) - rounds            # [T]
+    tid_sorted = tid[order]
+    slot_sorted = (chunk_start[tid_sorted] * chunk
+                   + jnp.arange(m, dtype=jnp.int32) - first[tid_sorted])
+    padpos = jnp.zeros((m,), jnp.int32).at[order].set(
+        slot_sorted, unique_indices=True)
+    invpos = jnp.full((geom.num_slots,), m, jnp.int32).at[padpos].set(
         jnp.arange(m, dtype=jnp.int32), unique_indices=True)
-
-    return BinnedPoints(
-        points_hi=points_hi,
-        points_lo=points_lo,
-        padpos=padpos,
-        invpos=invpos,
-        chunk_tidx=chunk_tidx,
-        tile_bounds=tile_bounds,
-    )
+    tile_bounds = jnp.concatenate(
+        [jnp.zeros((1,), jnp.int32), jnp.cumsum(rounds)]).astype(jnp.int32)
+    return BinnedPoints(points_hi=points_hi, points_lo=points_lo,
+                        padpos=padpos, invpos=invpos,
+                        tile_bounds=tile_bounds)
 
 
-def compute_band_origins(binned: BinnedPoints, geom: TileGeometry,
-                         half_width: float, sub: int):
-    """Static axis-0 band height + per-sub-chunk band origins for the
-    rank-3 banded kernels (eager; plan time only, concrete points).
-
-    With z-ordered binning (bin_points(..., zorder=True)), each
-    ``sub``-point sub-chunk of a chunk touches only a narrow range of
-    extended-tile axis-0 rows. The kernels then contract a [band, E1]
-    Khatri-Rao fold instead of [E0, E1] and add the contribution at a
-    dynamic leading-dim offset — a pure FLOP reduction of ~E0/band
-    (the 3D spread/interp kernels are MXU-bound).
-
-    Returns:
-        (band, zorigins): band is the static row count (multiple of 4,
-        <= E0; E0 itself means banding degenerated — callers should
-        fall back to the unbanded kernels), zorigins an int32
-        [num_chunks * ceil(chunk/sub)] numpy array of clamped band
-        start rows (0 for empty sub-chunks).
-    """
-    e0 = geom.ext[0]
-    chunk, nc = geom.chunk, geom.num_chunks
-    sublen = min(sub, chunk)
-    subs = -(-chunk // sublen)
-    z = np.asarray(binned.points_hi[:, 0], dtype=np.float64)
-    invpos = np.asarray(binned.invpos)
-    m = z.shape[0]
-    zs = np.concatenate([z, [np.nan]])[invpos]     # slot order
-    t0 = np.asarray(binned.chunk_tidx[0], dtype=np.float64)
-    origin = t0 * geom.tile[0] - geom.pad          # [NC]
-    s_ext = zs.reshape(nc, subs, sublen) - origin[:, None, None]
-    valid = np.isfinite(s_ext)
-    any_valid = valid.any(axis=-1)
-    mins = np.where(valid, s_ext, np.inf).min(axis=-1)
-    maxs = np.where(valid, s_ext, -np.inf).max(axis=-1)
-    # Rows with nonzero kernel weight: integer e in the OPEN interval
-    # (s - hw, s + hw) -> [floor(s_min - hw) + 1, ceil(s_max + hw) - 1].
-    # The 1e-3 slack absorbs the two-float coordinate low words
-    # (|lo| <= ~1e-5 grid units), which this hi-word bound ignores.
-    lo = np.floor(mins - half_width - 1e-3) + 1.0
-    hi = np.ceil(maxs + half_width + 1e-3) - 1.0
-    need = np.where(any_valid, hi - lo + 1.0, 0.0)
-    band = int(need.max()) if need.size else 0
-    band = min(-(-max(band, 4) // 4) * 4, e0)
-    zo = np.where(any_valid, lo, 0.0)
-    zo = np.clip(zo, 0, e0 - band).astype(np.int32)
-    return band, zo.reshape(nc * subs)
-
-
-def _pack_rows(rows, sentinel_rows: int, binned: BinnedPoints,
-               geom: TileGeometry) -> jax.Array:
-    """Packs per-point rows into the chunk-major [NC, R, chunk] layout.
-
-    R is padded to a multiple of 8 (DMA sublane alignment). All rows
-    move in ONE batched gather through the inverse slot map
-    (``invpos``): source [R, M + 1] (per-row pad value at index M),
-    indices along the minor axis — the measured-cheapest random data
-    movement on TPU (~1-4 ns/index; wide-row scatters hit ~50 ns/index
-    at M=200k, per-channel major-axis gathers ~7 ns). Padded slots read
-    SENTINEL in the first ``sentinel_rows`` rows, zero elsewhere.
-    """
-    chunk = geom.chunk
-    nc = geom.num_chunks
-    r = len(rows)
-    r_pad = -(-r // 8) * 8
-    m = rows[0].shape[0]
-    pads = np.zeros((r, 1), np.float32)
-    pads[:sentinel_rows, 0] = SENTINEL
+def to_slots(rows: jax.Array, binned: BinnedPoints,
+             fill: float = 0.0) -> jax.Array:
+    """Point-order rows [R, M] -> slot order [R, num_slots]; padded
+    slots read ``fill`` (one gather through ``invpos``)."""
+    r, _ = rows.shape
     src = jnp.concatenate(
-        [jnp.stack([v.astype(jnp.float32) for v in rows]),
-         jnp.asarray(pads)], axis=1)                   # [R, M + 1]
-    if r_pad != r:
-        # Pad rows BEFORE the gather: a full-8-sublane source is the
-        # measured-fast minor-axis gather shape on v5e (partial-sublane
-        # sources gather several times slower), and the padded rows
-        # come out zero — exactly the DMA sublane padding the payload
-        # needs anyway.
-        src = jnp.concatenate(
-            [src, jnp.zeros((r_pad - r, m + 1), jnp.float32)], axis=0)
-    # Materialize before gathering (see build_values_payload).
-    src = jax.lax.optimization_barrier(src)
-    g = src[:, binned.invpos]                       # [R8, NC * chunk]
-    return g.reshape(r_pad, nc, chunk).transpose(1, 0, 2)
-
-
-def build_coords_payload(binned: BinnedPoints,
-                         geom: TileGeometry) -> jax.Array:
-    """[NC, 8*, chunk] coordinate payload: rows 0..rank-1 high words,
-    rank..2rank-1 low words. Depends only on the points, so in iterative
-    algorithms (CG recon, training loops) XLA hoists it out of the loop
-    — keep it separate from the per-iteration values payload."""
-    rank = geom.rank
-    rows = ([binned.points_hi[:, d] for d in range(rank)]
-            + [binned.points_lo[:, d] for d in range(rank)])
-    return _pack_rows(rows, rank, binned, geom)
-
-
-def build_values_payload(values_cm: jax.Array, binned: BinnedPoints,
-                         geom: TileGeometry) -> jax.Array:
-    """[8*, NC * chunk] FLAT per-point values payload; zero in padded
-    slots; rows are channels (sublane-padded to a multiple of 8).
-
-    Takes CHANNEL-MAJOR values [B2, M] (the natural planar fold layout)
-    and moves all channels in one batched minor-axis gather through
-    ``invpos`` — the measured-cheapest random data movement on TPU
-    (~1.5 ns/index; the [M, B2]-row scatter it replaces measured
-    ~50 ns/index at M=200k — 10 ms against a 0.3 ms spread kernel).
-    The layout stays flat: a chunk-major reshape+transpose here fuses
-    INTO the gather and makes it a slow major-axis gather (measured
-    +4 ms); instead the kernels DMA [R, chunk] slices at dynamic
-    minor-axis offsets.
-    """
-    b2, m = values_cm.shape
-    r_pad = -(-b2 // 8) * 8
-    src = jnp.concatenate(
-        [values_cm.astype(jnp.float32),
-         jnp.zeros((b2, 1), jnp.float32)], axis=1)     # [B2, M + 1]
-    if r_pad != b2:
-        # Pad rows BEFORE the gather: full-8-sublane sources gather
-        # several times faster on v5e than partial-sublane ones (the
-        # hardware fetches whole sublane columns either way), and the
-        # padded rows come out zero — the sublane padding the payload
-        # needs anyway (measured 3D 800k: 6.6 ms -> ~2 ms).
-        src = jnp.concatenate(
-            [src, jnp.zeros((r_pad - b2, m + 1), jnp.float32)], axis=0)
-    # The barrier materializes the concat: XLA otherwise fuses it INTO
-    # the gather, which demotes the gather to a slow per-index path
-    # (measured 4.9 ms vs 0.7 ms at M=200k on v5e).
-    src = jax.lax.optimization_barrier(src)
+        [rows, jnp.full((r, 1), fill, rows.dtype)], axis=1)
     return src[:, binned.invpos]
 
 
-def pack_values_slots(values_slots: jax.Array) -> jax.Array:
-    """[B2, NC * chunk] SLOT-ORDER values -> spread values payload.
-
-    The chunk-order dual of ``build_values_payload``: rows are
-    sublane-padded to a multiple of 8 with zeros, but there is NO
-    gather — used when upstream work (a planned type-2 interp with
-    ``chunk_order=True``) already produced the values in slot order.
-    Fusing adjoint-after-forward this way removes both point-order
-    permutations from iterative algorithms (the CG normal operator).
-    """
-    b2, _ = values_slots.shape
-    r_pad = -(-b2 // 8) * 8
-    src = values_slots.astype(jnp.float32)
-    if r_pad != b2:
-        src = jnp.concatenate(
-            [src, jnp.zeros((r_pad - b2,) + src.shape[1:],
-                            jnp.float32)], axis=0)
-    return src
+def from_slots(slot_rows: jax.Array, binned: BinnedPoints) -> jax.Array:
+    """Slot order [R, num_slots] -> point order [R, M] (the inverse of
+    ``to_slots``; one gather through ``padpos``)."""
+    return slot_rows[:, binned.padpos]
 
 
-def slot_order_scalar(x: jax.Array, binned: BinnedPoints) -> jax.Array:
-    """[M] point-order reals -> [NC * chunk] slot order (zero in padded
-    slots). One minor-axis gather; meant for plan-time permutation of
-    per-point weights (density compensation) feeding the fused normal
-    operator."""
-    src = jnp.concatenate(
-        [x.astype(jnp.float32)[None, :],
-         jnp.zeros((1, 1), jnp.float32)], axis=1)       # [1, M + 1]
-    src = jnp.concatenate(
-        [src, jnp.zeros((7, src.shape[1]), jnp.float32)], axis=0)
-    src = jax.lax.optimization_barrier(src)
-    return src[:, binned.invpos][0]
+def slot_coords(binned: BinnedPoints) -> jax.Array:
+    """[2 * rank, num_slots] float32 kernel coordinates: rows 0..rank-1
+    the high words (SENTINEL in padded slots, so their kernel weights
+    are exactly zero), rows rank..2rank-1 the low words. Depends only on
+    the points: planned transforms build it once."""
+    hi = to_slots(jnp.swapaxes(binned.points_hi, 0, 1).astype(jnp.float32),
+                  binned, SENTINEL)
+    lo = to_slots(jnp.swapaxes(binned.points_lo, 0, 1).astype(jnp.float32),
+                  binned)
+    return jnp.concatenate([hi, lo], axis=0)
 
 
-def combined_rows(rank: int, b2: int) -> int:
-    """Row count of the combined coords+values payload."""
-    return 2 * rank + b2
-
-
-def combined_fits(rank: int, b2: int) -> bool:
-    """Whether the combined payload stays within one 8-sublane block —
-    the regime where it costs exactly as much to gather as the values
-    payload alone (whose pad rows were zeros) while halving the spread
-    kernel's per-chunk DMA count. Beyond 8 rows the split layout wins
-    on gather traffic (the coords block is static and shared across
-    channel groups)."""
-    return combined_rows(rank, b2) <= 8
-
-
-def build_combined_payload(values_cm: jax.Array, binned: BinnedPoints,
-                           geom: TileGeometry) -> jax.Array:
-    """[R8, NC * chunk] FLAT payload carrying coordinates AND values:
-    rows 0..rank-1 hi words, rank..2rank-1 lo words, then the B2 value
-    channels; zero rows pad to a multiple of 8 (DMA sublane alignment).
-
-    One minor-axis gather through ``invpos`` moves everything the
-    spread kernel needs, so the kernel issues ONE per-chunk DMA instead
-    of separate coords and values copies. For 2*rank + B2 <= 8 (any
-    single complex transform, rank 1-3) the gather fetches the same
-    8-sublane columns the values-only gather already fetched — the
-    coordinate rows ride for free. Padded slots read SENTINEL in the hi
-    rows (kernel weights exactly zero) and zero elsewhere.
-    """
-    b2, m = values_cm.shape
-    rank = geom.rank
-    r = combined_rows(rank, b2)
-    r_pad = -(-r // 8) * 8
-    src = jnp.concatenate(
-        [jnp.swapaxes(binned.points_hi, 0, 1).astype(jnp.float32),
-         jnp.swapaxes(binned.points_lo, 0, 1).astype(jnp.float32),
-         values_cm.astype(jnp.float32)], axis=0)       # [R, M]
-    pads = np.zeros((r, 1), np.float32)
-    pads[:rank, 0] = SENTINEL
-    src = jnp.concatenate([src, jnp.asarray(pads)], axis=1)
-    if r_pad != r:
-        src = jnp.concatenate(
-            [src, jnp.zeros((r_pad - r, m + 1), jnp.float32)], axis=0)
-    # The barrier materializes the concat: XLA otherwise fuses it INTO
-    # the gather, demoting it to a slow per-index path (see
-    # build_values_payload).
-    src = jax.lax.optimization_barrier(src)
-    return src[:, binned.invpos]
-
-
-def mats_supported(geom: TileGeometry) -> bool:
-    """Whether the precomputed-matrix payload layout is valid: extended
-    dims must be 8-sublane aligned for the [E, C] chunk DMAs."""
-    return all(e % 8 == 0 for e in geom.ext) and geom.chunk % 128 == 0
-
-
-def build_kernel_matrix_payload(binned: BinnedPoints,
-                                geom: TileGeometry, plan):
-    """Precomputed per-chunk ES kernel matrices, all axes concatenated.
-
-    Returns ONE [NC, sum(E_d), C] float32 array; axis d's matrix
-    occupies rows [sum(E_<d), sum(E_<=d)) of each chunk slice, with
-    ``mats[k, off_d + e, c] = phi(e + origin_d(k) - s_c^d)``. The
-    [E, C] orientation makes the per-chunk DMA slice both sublane-
-    (E % 8 == 0, see choose_geometry) and lane-aligned (C % 128 == 0)
-    with no pad bytes, and the concatenation means the kernels fetch
-    all axes with ONE per-chunk DMA (separate per-axis copies cost
-    ~rank x the DMA issue overhead, which dominates at 3D chunk
-    counts).
-
-    The matrices depend only on the points (not the strengths), so a
-    planned transform computes them once — turning the Pallas
-    spread/interp kernels into pure DMA + MXU streams (in-kernel VPU
-    polynomial evaluation otherwise dominates at ~2 us per chunk).
-    Sentinel slots evaluate to exactly zero.
-    """
-    from tensorflow_nufft_tpu.kernels.xla_ops import es_kernel_for
-    rank = geom.rank
-    coords = build_coords_payload(binned, geom)      # [NC, 8, C]
-    mats = []
-    for d in range(rank):
-        origin = (binned.chunk_tidx[d].astype(jnp.float32)
-                  * float(geom.tile[d]) - float(geom.pad))   # [NC]
-        s_hi = coords[:, d, :] - origin[:, None]             # [NC, C]
-        s_lo = coords[:, rank + d, :]
-        e = jnp.arange(geom.ext[d], dtype=jnp.float32)
-        z = (e[None, :, None] - s_hi[:, None, :]) - s_lo[:, None, :]
-        mats.append(es_kernel_for(z, plan))
-    return jnp.concatenate(mats, axis=1)
-
-
-def scatter_chunked(values: jax.Array, binned: BinnedPoints
-                    ) -> jax.Array:
-    """Padded chunk stream [R, NC*chunk] -> original order [R, M]
-    (pure gather via padpos).
-
-    Rows are padded to a full 8-sublane gather source and sliced back
-    (see _pack_rows), and the source is barrier-materialized so the
-    upstream transpose/reshape cannot fuse into the gather (which
-    demotes it to the slow per-index path)."""
-    if values.ndim == 2:
-        r = values.shape[0]
-        r_pad = -(-r // 8) * 8
-        if r_pad != r:
-            values = jnp.concatenate(
-                [values,
-                 jnp.zeros((r_pad - r,) + values.shape[1:],
-                           values.dtype)], axis=0)
-        values = jax.lax.optimization_barrier(values)
-        return values[:, binned.padpos][:r]
-    return values[..., binned.padpos]
+def _fold_axis(x: jax.Array, ax: int, tile: int, pad: int,
+               nf: int) -> jax.Array:
+    """Overlap-adds the (nt, E) axis pair at (ax, ax + 1) into one fine
+    axis of length nf. Block i covers fine indices
+    [i*tile - pad, i*tile - pad + E) modulo nf."""
+    nt, e = x.shape[ax], x.shape[ax + 1]
+    k = -(-e // tile)                                  # tile-wide pieces
+    widths = [(0, 0)] * x.ndim
+    widths[ax + 1] = (0, k * tile - e)
+    x = jnp.pad(x, widths)
+    lin_len = (nt + k - 1) * tile
+    lin = None
+    for j in range(k):
+        piece = jax.lax.slice_in_dim(x, j * tile, (j + 1) * tile,
+                                     axis=ax + 1)
+        piece = piece.reshape(x.shape[:ax] + (nt * tile,)
+                              + x.shape[ax + 2:])
+        widths = [(0, 0)] * piece.ndim
+        widths[ax] = (j * tile, lin_len - nt * tile - j * tile)
+        piece = jnp.pad(piece, widths)
+        lin = piece if lin is None else lin + piece
+    # lin[p] holds fine index (p - pad) mod nf: fold whole periods.
+    reps = -(-lin_len // nf)
+    widths = [(0, 0)] * lin.ndim
+    widths[ax] = (0, reps * nf - lin_len)
+    lin = jnp.pad(lin, widths)
+    folded = lin.reshape(lin.shape[:ax] + (reps, nf)
+                         + lin.shape[ax + 1:]).sum(axis=ax)
+    return jnp.roll(folded, -pad, axis=ax)
 
 
 def overlap_add(tiles: jax.Array, geom: TileGeometry) -> jax.Array:
@@ -817,67 +239,44 @@ def overlap_add(tiles: jax.Array, geom: TileGeometry) -> jax.Array:
 
     Returns:
         [B, *fine_shape] with halos wrapped periodically (the role of the
-        reference's add_wrapped_subgrid, nufft_plan.cc:1638-1734 — but
-        deterministic slicing/rolls instead of atomics).
-
-    All axis folds run in place (slice/roll/concat with axis arguments,
-    one transpose at the very end): moveaxis-sandwich formulations make
-    XLA materialize physically transposed layouts between folds, which
-    measured ~20x slower at 3D 256^3 scale on v5e.
+        reference's add_wrapped_subgrid, nufft_plan.cc:1638-1734, with
+        slicing and sums instead of atomics).
     """
     rank = geom.rank
-    pad = geom.pad
-    x = tiles
-    for d in range(rank):
-        tile_ax, ext_ax = d, rank + 1 + d
-        t = geom.tile[d]
-        left = jnp.roll(
-            jax.lax.slice_in_dim(x, 0, pad, axis=ext_ax),
-            -1, axis=tile_ax)
-        right = jnp.roll(
-            jax.lax.slice_in_dim(x, t + pad, t + 2 * pad, axis=ext_ax),
-            1, axis=tile_ax)
-        x = jnp.concatenate([
-            jax.lax.slice_in_dim(x, pad, 2 * pad, axis=ext_ax) + right,
-            jax.lax.slice_in_dim(x, 2 * pad, t, axis=ext_ax),
-            jax.lax.slice_in_dim(x, t, t + pad, axis=ext_ax) + left,
-        ], axis=ext_ax)                       # ext axis now length t
-    # [nt_0.., B, t_0..] -> [B, nt_0, t_0, ...] -> [B, *fine]
     perm = [rank]
     for d in range(rank):
         perm.extend([d, rank + 1 + d])
-    x = jnp.transpose(x, perm)
-    batch = x.shape[0]
-    return x.reshape((batch,) + geom.fine_shape)
+    x = jnp.transpose(tiles, perm)          # [B, nt_0, E_0, nt_1, ...]
+    for d in range(rank):
+        x = _fold_axis(x, 1 + d, geom.tile[d], geom.pad,
+                       geom.fine_shape[d])
+    return x
 
 
 def extend_tiles(fine: jax.Array, geom: TileGeometry) -> jax.Array:
     """Full fine grid [B, *fine] -> per-tile extended blocks
-    [*tiles, B, *ext] (inverse companion of overlap_add; used by the
-    interp kernel to give each tile its halo).
-
-    Window extraction per axis is a reshape into (nt, t) plus one
-    rolled pad slice on each side — one concat per axis, no
-    stack-of-windows (which measured pathologically slow at 3D scale),
-    and periodic wrap comes from the rolls (no pre-padding).
-    """
+    [*tiles, B, *ext] with periodic halos: the adjoint of
+    ``overlap_add``. Block i reads fine indices
+    [i*tile - pad, i*tile - pad + E) modulo nf."""
     rank = geom.rank
-    pad = geom.pad
     x = fine
     for d in range(rank):
-        ax = 1 + 2 * d     # current spatial axis position in x
-        nt = geom.tiles[d]
-        t = geom.tile[d]
-        shape = x.shape
-        x = x.reshape(shape[:ax] + (nt, t) + shape[ax + 1:])
-        left = jnp.roll(
-            jax.lax.slice_in_dim(x, t - pad, t, axis=ax + 1),
-            1, axis=ax)
-        right = jnp.roll(
-            jax.lax.slice_in_dim(x, 0, pad, axis=ax + 1),
-            -1, axis=ax)
-        x = jnp.concatenate([left, x, right], axis=ax + 1)
-    # x: [B, nt_0, E_0, nt_1, E_1, ...] -> [nt_0.., B, E_0..]
+        ax = 1 + 2 * d          # axis d's position in [B, nt_0, E_0, ...]
+        nt, t, e = geom.tiles[d], geom.tile[d], geom.ext[d]
+        nf = geom.fine_shape[d]
+        k = -(-e // t)
+        lin_len = (nt + k - 1) * t
+        reps = -(-lin_len // nf)
+        lin = jnp.concatenate([jnp.roll(x, geom.pad, axis=ax)] * reps,
+                              axis=ax)
+        pieces = []
+        for j in range(k):
+            piece = jax.lax.slice_in_dim(lin, j * t, j * t + nt * t,
+                                         axis=ax)
+            pieces.append(piece.reshape(piece.shape[:ax] + (nt, t)
+                                        + piece.shape[ax + 1:]))
+        x = jax.lax.slice_in_dim(jnp.concatenate(pieces, axis=ax + 1),
+                                 0, e, axis=ax + 1)
     perm = [1 + 2 * d for d in range(rank)] + [0] + \
         [2 + 2 * d for d in range(rank)]
     return jnp.transpose(x, perm)

@@ -1,11 +1,13 @@
 """Backend dispatch for the spread/interp hot loops.
 
 Mirrors the reference's spread-method auto-selection
-(cc/kernels/nufft_plan.cu.cc:1871-1879) but for TPU: 'pallas' is the
-tile-exclusive MXU formulation, 'xla' the portable scatter/gather path.
-'auto' picks Pallas on TPU when the configuration is supported and XLA
-otherwise (CPU, unsupported dtypes, spread-only ops that must stay
-differentiable through the kernel).
+(cc/kernels/nufft_plan.cu.cc:1871-1879). 'pallas' is the tile-exclusive
+spread kernel (``kernels/triton_spread.py``: compiled through Triton on
+a GPU, interpreted on the CPU), 'xla' the portable scatter/gather path,
+'native' the C++ host engine. Interpolation is XLA's gather on every
+device (the reference's GPU interp is the same per-point gather,
+NUPTS_DRIVEN). 'auto' picks the spread kernel on a GPU where it was
+measured faster end to end, and XLA otherwise.
 """
 
 from __future__ import annotations
@@ -17,95 +19,40 @@ import numpy as np
 from tensorflow_nufft_tpu.kernels import xla_ops
 from tensorflow_nufft_tpu.plan.plan import NufftPlan
 
+# Ranks whose type-1 is faster on a GPU with the spread kernel than
+# with the XLA scatter (measured end to end on an H100; see PERF.md).
+AUTO_GPU_RANKS = (2, 3)
 
-def pallas_active(plan: NufftPlan, dtype, num_points=None,
-                  planned: bool = False) -> bool:
-    """Whether the Pallas path serves this plan for real data of
-    ``dtype`` (the Pallas kernels are planar/real-only).
 
-    ``planned=True`` (PlannedNufft-style callers) additionally accepts
-    rank-3 geometries that only fit VMEM through the axis-0-banded
-    kernels — banding needs plan-time z-ordered binning, so unplanned
-    dispatch can never use it (and must not optimistically claim it:
-    the kernel launch would raise instead of falling back to XLA).
-    PlannedNufft re-plans on the unbanded geometry if the band
-    degenerates at plan time (clustered z distributions)."""
-    if plan.spec.backend == "xla":
+def spread_kernel_active(plan: NufftPlan, dtype) -> bool:
+    """Whether the tile-exclusive spread kernel serves this plan for
+    data of ``dtype`` (planar float32 only).
+
+    ``backend='pallas'`` forces the kernel and raises where it cannot
+    serve the transform; 'auto' uses it on a GPU for the ranks in
+    ``AUTO_GPU_RANKS``."""
+    from tensorflow_nufft_tpu.kernels import triton_spread
+    backend = plan.spec.backend
+    if backend in ("xla", "native"):
         return False
-    is_complex_data = jnp.issubdtype(np.dtype(dtype),
-                                     jnp.complexfloating)
-    try:
-        from tensorflow_nufft_tpu.kernels import pallas_spread as ps
-    except ImportError:
-        if plan.spec.backend == "pallas":
-            raise ValueError(
-                "backend='pallas' requested but the Pallas kernels are "
-                "unavailable on this install.")
-        return False
-    if plan.spec.backend == "pallas":
-        # Forced: still require a supported config — silently degrading
-        # (e.g. casting f64 planar data to f32, or quietly running XLA
-        # for complex arrays) would defeat the point of forcing.
+    is_complex_data = jnp.issubdtype(np.dtype(dtype), jnp.complexfloating)
+    if backend == "pallas":
         if is_complex_data:
             raise ValueError(
                 "backend='pallas' serves the planar (real, trailing "
                 "re/im channel) pipeline only; complex-dtype arrays "
                 "dispatch to XLA. Use the planar API or backend='xla'.")
-        if not ps.supports(plan):
+        if not triton_spread.supports(plan):
             raise ValueError(
                 f"backend='pallas' requires complex64/planar-float32 "
                 f"data and rank in (1, 2, 3); got "
                 f"dtype_name={plan.spec.dtype_name!r}, rank={plan.rank}. "
                 f"Use backend='xla' (or 'auto') instead.")
-        from tensorflow_nufft_tpu.kernels import binning
-        geom = binning.choose_geometry(
-            plan.fine_shape, plan.width,
-            int(num_points) if num_points is not None else 1)
-        if not binning.geometry_valid(geom):
-            raise ValueError(
-                f"backend='pallas' cannot tile fine shape "
-                f"{plan.fine_shape} (a dim is smaller than twice the "
-                f"halo {geom.pad}); use backend='xla' (or 'auto').")
         return True
-    # auto: only on TPU, f32 planar, supported config. Spread-only ops
-    # are served too — their gradients come from the analytic-kernel-
-    # derivative custom VJPs (ops.core.spread_only_core), not from
-    # differentiating through the kernels.
-    if is_complex_data:
-        return False
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except RuntimeError:
-        on_tpu = False
-    if not on_tpu:
-        return False
-    if plan.spec.dtype_name != "complex64":
-        return False
-    if not ps.supports(plan):
-        return False
-    from tensorflow_nufft_tpu.kernels import binning
-    geom = binning.choose_geometry(
-        plan.fine_shape, plan.width,
-        int(num_points) if num_points is not None else 1)
-    if not binning.geometry_valid(geom):
-        return False
-    if (ps.streaming_group_size(geom) == 0
-            and ps.resident_group_size(geom) == 0):
-        # Not even a 2-channel group fits the VMEM budget (very wide
-        # kernels on large 3D tiles): fall back to XLA — unless a
-        # planned rank-3 caller can reach the geometry through the
-        # banded kernels (checked with the smallest usable band; the
-        # real band is known only after plan-time binning).
-        if not (planned and plan.rank == 3):
-            return False
-        bgeom = binning.choose_geometry(
-            plan.fine_shape, plan.width,
-            int(num_points) if num_points is not None else 1,
-            banded=True)
-        if (not binning.geometry_valid(bgeom)
-                or ps.streaming_group_size(bgeom, band=8) == 0):
-            return False
-    return True
+    return (not is_complex_data
+            and triton_spread.platform() == "gpu"
+            and triton_spread.supports(plan)
+            and plan.rank in AUTO_GPU_RANKS)
 
 
 def _native_requested(plan: NufftPlan) -> bool:
@@ -119,12 +66,6 @@ def _points_pair(points_resc):
     if isinstance(points_resc, tuple):
         return points_resc
     return points_resc, jnp.zeros_like(points_resc)
-
-
-def _num_points(points_resc) -> int:
-    if isinstance(points_resc, tuple):
-        return int(points_resc[0].shape[0])
-    return int(points_resc.shape[0])
 
 
 def _host_points(hi, lo):
@@ -205,16 +146,13 @@ def _native_interp_callback(fine, points_resc, plan: NufftPlan):
 
 def spread(strengths: jax.Array, points_resc: jax.Array,
            plan: NufftPlan) -> jax.Array:
-    """[B, M] strengths + [M, rank] rescaled points -> [B, *fine_shape].
-
-    Full-fine-grid output; the tiled entry points below avoid
-    materializing the fine grid on the Pallas path.
-    """
+    """[B, M] strengths + [M, rank] rescaled points -> [B, *fine_shape]."""
     if _native_requested(plan):
         return _native_spread_callback(strengths, points_resc, plan)
-    if pallas_active(plan, strengths.dtype, _num_points(points_resc)):
-        from tensorflow_nufft_tpu.kernels import pallas_spread
-        return pallas_spread.spread_pallas(strengths, points_resc, plan)
+    if spread_kernel_active(plan, strengths.dtype):
+        from tensorflow_nufft_tpu.kernels import binning, triton_spread
+        tiles, geom = triton_spread.spread(strengths, points_resc, plan)
+        return binning.overlap_add(tiles, geom).astype(strengths.dtype)
     indices, kernels = xla_ops.spread_geometry(points_resc, plan)
     return xla_ops.spread_xla(strengths, indices, kernels, plan)
 
@@ -224,9 +162,6 @@ def interp(fine: jax.Array, points_resc: jax.Array,
     """[B, *fine_shape] grid + [M, rank] rescaled points -> [B, M]."""
     if _native_requested(plan):
         return _native_interp_callback(fine, points_resc, plan)
-    if pallas_active(plan, fine.dtype, _num_points(points_resc)):
-        from tensorflow_nufft_tpu.kernels import pallas_interp
-        return pallas_interp.interp_pallas(fine, points_resc, plan)
     indices, kernels = xla_ops.spread_geometry(points_resc, plan)
     return xla_ops.interp_xla(fine, indices, kernels, plan)
 
@@ -237,36 +172,7 @@ def interp_deriv(fine: jax.Array, points_resc, plan: NufftPlan,
     axis — the building block of the spread-only custom VJPs
     (ops.core.spread_only_core): the points-gradient of both standalone
     ops is a derivative-kernel interpolation of the grid-side quantity.
-    Pallas on TPU (in-kernel phi' evaluation), XLA otherwise; the
-    native engine has no derivative path, so it falls through to XLA.
-    """
-    if pallas_active(plan, fine.dtype, _num_points(points_resc)):
-        from tensorflow_nufft_tpu.kernels import binning, pallas_interp
-        geom = binning.choose_geometry(
-            plan.fine_shape, plan.width, _num_points(points_resc))
-        tiles = binning.extend_tiles(fine.astype(jnp.float32), geom)
-        return pallas_interp.interp_pallas_tiled(
-            tiles, points_resc, plan, geom,
-            deriv_axis=axis).astype(fine.dtype)
+    XLA on every backend (the native engine has no derivative path)."""
     indices, kernels = xla_ops.spread_geometry(points_resc, plan,
                                                deriv_axis=axis)
     return xla_ops.interp_xla(fine, indices, kernels, plan)
-
-
-def spread_tiled(strengths_cm: jax.Array, points_resc,
-                 plan: NufftPlan):
-    """Pallas spread returning per-tile extended blocks (no overlap-add):
-    strengths_cm [B2, M] (channel-major) -> (tiles [*tiles, B2, *ext],
-    geom). Pallas-only entry point."""
-    from tensorflow_nufft_tpu.kernels import pallas_spread
-    return pallas_spread.spread_pallas_tiles(
-        strengths_cm.astype(jnp.float32), points_resc, plan)
-
-
-def interp_tiled(tiles: jax.Array, points_resc: jax.Array,
-                 plan: NufftPlan, geom) -> jax.Array:
-    """Pallas interp consuming per-tile extended blocks:
-    tiles [*tiles, B2, *ext] -> values [B2, M]."""
-    from tensorflow_nufft_tpu.kernels import pallas_interp
-    return pallas_interp.interp_pallas_tiled(tiles, points_resc, plan,
-                                             geom)

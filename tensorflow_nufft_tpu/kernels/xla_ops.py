@@ -1,7 +1,7 @@
 """Portable XLA implementations of the NUFFT spread/interp stages.
 
-These are the reference device path: pure jnp/lax, correct on CPU and TPU,
-differentiable, and the numerical oracle for the Pallas kernels. The hot
+These are the portable device path: pure jnp/lax, correct on every backend,
+differentiable, and the numerical oracle for the spread kernel. The hot
 loops are written as a ``lax.scan`` over kernel-offset combinations so peak
 memory is O(M * width) instead of O(M * width^rank).
 
@@ -69,8 +69,8 @@ def fold_and_rescale_split(points: jax.Array, fine_shape: Sequence[int],
     256^2 grids, dominating the NUFFT error budget at tol 1e-6. This
     returns s as an exact-compensated pair (s_hi + s_lo ~ 1e-12 grid
     units of error) using Dekker/Veltkamp arithmetic. The corrections
-    are wrapped in ``optimization_barrier`` because XLA:TPU otherwise
-    reassociates them away (measured: compensation silently becomes 0).
+    are wrapped in ``optimization_barrier`` so that no compiler
+    reassociates them away (the compensation would silently become 0).
 
     Note pi * (nf / 2pi) == nf/2 exactly, so the +pi shift is the exact
     integer nf/2 and only the product x * c needs compensation.
@@ -278,8 +278,10 @@ def spread_xla(strengths: jax.Array, indices, kernels,
     Returns:
         [B, *fine_shape] complex fine grid.
 
-    Scatter-add is used instead of atomics (which TPU lacks); the Pallas
-    path replaces this with tile-exclusive accumulation.
+    XLA lowers the scatter-add to atomics on a GPU, so results vary in
+    the last bits from run to run; the spread kernel
+    (``kernels/triton_spread.py``) replaces this with tile-exclusive
+    accumulation.
     """
     rank = plan.rank
     width = plan.width

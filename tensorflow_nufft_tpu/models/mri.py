@@ -4,7 +4,7 @@ The reference ships this as its flagship application notebook
 (docs/examples/mri_app.ipynb): a radial k-space trajectory, a type-2
 forward model, density-compensated type-1 adjoint, and an iterative
 CG-SENSE reconstruction through the op's gradients. This module provides
-those pieces as a first-class, TPU-native (planar, jit-able) model family.
+those pieces as a first-class (planar, jit-able) model family.
 
 Complex images/k-space are planar: real arrays with a trailing (re, im)
 channel (see ``tensorflow_nufft_tpu.planar``).
@@ -185,9 +185,8 @@ class SenseNufft:
 
     With ``planned=True`` (default) and a single [M, rank] trajectory,
     the forward/adjoint pair runs on a shared ``planar.PlannedNufft``:
-    binning, chunk payloads and ES kernel matrices are computed once at
-    construction (the trajectory is fixed across CG iterations), so on
-    TPU each apply is a pure DMA + MXU kernel stream. Falls back to the
+    the fold and the tile binning are computed once at construction (the
+    trajectory is fixed across CG iterations). Falls back to the
     unplanned pipeline where the planned path does not serve (CPU, f64).
     """
 
@@ -251,11 +250,10 @@ class SenseNufft:
 
         With ``toeplitz=True`` the normal operator is the embedded
         FFT-domain convolution (``planar.ToeplitzNormal``): no
-        spread/interp runs at all per iteration. Otherwise, on the
-        planned TPU path this runs the fused chunk-order composition
-        (``PlannedNufft.normal``): the per-coil point values never
-        leave chunk-slot order between the interp and spread kernels,
-        skipping both point-order permutations per iteration."""
+        spread/interp runs at all per iteration. Otherwise, on a planned
+        transform this runs ``PlannedNufft.normal``: the per-coil point
+        values are weighted in chunk-slot order and go straight to the
+        spread kernel."""
         if self._toeplitz is not None:
             coil_images = pmul(self.maps, image[None])
             coil_normal = self._toeplitz(coil_images)

@@ -25,7 +25,7 @@ _LOCK = threading.Lock()
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 _SOURCE = _REPO_ROOT / "cc" / "nufft_cpu.cc"
 _BUILD_DIR = pathlib.Path(
-    os.environ.get("TFFT_TPU_BUILD_DIR",
+    os.environ.get("TFFT_BUILD_DIR",
                    str(_REPO_ROOT / "build"))).resolve()
 _CXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
               "-std=c++17"]

@@ -1,6 +1,6 @@
 """Eager (NumPy) NUFFT on the native CPU engine.
 
-Serves the precision envelope the TPU cannot: complex128 down to 1e-14
+Serves the full precision envelope on the host: complex128 down to 1e-14
 tolerances (reference range: python/ops/nufft_ops.py:77-80), with the
 C++/OpenMP engine for the spread/interp hot loops and NumPy's pocketfft
 for the FFT stage. Plan math is shared with the JAX path, so the two

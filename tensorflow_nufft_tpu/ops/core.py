@@ -115,7 +115,7 @@ def spread_only_core(source: jax.Array, points: jax.Array,
     transpose is just the swapped type); grad_points uses the analytic
     ES-kernel derivative phi'(z) = -beta c z phi(z)/sqrt(1 - c z^2)
     via a derivative-kernel interpolation — which lets the forward run
-    the (non-differentiable-through) Pallas/native kernels on TPU.
+    the (non-differentiable-through) spread kernel or native engine.
     """
     return _execute(source, points, make_plan(spec))
 
@@ -218,7 +218,8 @@ def _nufft_core_bwd(spec, residuals, cotangent):
     i_sigma = jnp.asarray(1j * plan_sign, dtype=dtype)
     # grad_points[m, ax] = Re( i*s * sum_b aux[b, ax, m] * V[b, m] )
     grad_points = jnp.real(
-        i_sigma * jnp.einsum("bam,bm->ma", aux, v_pts))
+        i_sigma * jnp.einsum("bam,bm->ma", aux, v_pts,
+                             precision=jax.lax.Precision.HIGHEST))
     grad_points = grad_points.astype(points.dtype)
     return grad_source, grad_points
 

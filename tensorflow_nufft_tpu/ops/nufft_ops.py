@@ -1,7 +1,7 @@
 """Public NUFFT API: ``nufft``, ``interp``, ``spread``, ``nudft``.
 
 Signature and semantics parity with the reference Python API
-(python/ops/nufft_ops.py:34-123), re-implemented TPU-first: everything is
+(python/ops/nufft_ops.py:34-123), re-implemented in JAX: everything is
 pure JAX, jit/vmap/grad-compatible, with static shapes.
 
 Batching follows the reference's kernel-dispatch semantics

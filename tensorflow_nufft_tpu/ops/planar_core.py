@@ -1,5 +1,4 @@
-"""Planar-real core NUFFT: the execution path for TPUs without complex
-dtype support.
+"""Planar-real core NUFFT: complex values as a trailing (re, im) channel.
 
 Mathematically identical to ``ops.core`` but every tensor is real with a
 trailing (re, im) channel. The spread/interp/deconvolve stages are
@@ -25,9 +24,7 @@ import numpy as np
 
 from tensorflow_nufft_tpu.fft.planar_fft import (
     amplify_pad_dft,
-    amplify_pad_dft_tiled,
     dft_truncate_deconvolve,
-    dft_truncate_deconvolve_tiled,
 )
 from tensorflow_nufft_tpu.kernels import dispatch
 from tensorflow_nufft_tpu.kernels.xla_ops import fold_and_rescale_split
@@ -59,21 +56,7 @@ def _execute_planar(source: jax.Array, points: jax.Array,
     with prof.scope("nufft.fold_rescale"):
         points_resc = fold_and_rescale_split(points, plan.fine_shape,
                                              spec.points_range)
-    use_tiled = (not spec.spread_only
-                 and dispatch.pallas_active(plan, source.dtype,
-                                            points.shape[0]))
     if spec.transform_type == "type_1":
-        if use_tiled:
-            # Spread to per-tile blocks; overlap-add + DFT + truncation
-            # + deconvolution all fused into one contraction. Channel-
-            # major [2B, M] input is exactly _fold's layout.
-            with prof.scope("nufft.spread"):
-                tiles, geom = dispatch.spread_tiled(
-                    _fold(source), points_resc, plan)
-            with prof.scope("nufft.mode_dft_deconvolve"):
-                out = dft_truncate_deconvolve_tiled(tiles, plan, geom,
-                                                    batch)
-            return out.astype(source.dtype)
         with prof.scope("nufft.spread"):
             fine = dispatch.spread(_fold(source), points_resc, plan)
         if spec.spread_only:
@@ -88,18 +71,6 @@ def _execute_planar(source: jax.Array, points: jax.Array,
             values = dispatch.interp(_fold(source), points_resc, plan)
         scale = jnp.asarray(plan.kernel_scale, values.dtype)
         return _unfold(values * scale, batch)
-    if use_tiled:
-        # Amplify + pad + DFT + halo windowing fused; interp consumes
-        # the tile blocks directly (fine grid never materializes).
-        from tensorflow_nufft_tpu.kernels import binning
-        geom = binning.choose_geometry(
-            plan.fine_shape, plan.width, points.shape[0])
-        with prof.scope("nufft.amplify_dft"):
-            tiles = amplify_pad_dft_tiled(source, plan, geom)
-        with prof.scope("nufft.interp"):
-            values = dispatch.interp_tiled(tiles, points_resc, plan,
-                                           geom)
-        return _unfold(values, batch).astype(source.dtype)
     # Amplification + zero-padding + DFT in one fused contraction.
     with prof.scope("nufft.amplify_dft"):
         grid = amplify_pad_dft(source, plan)

@@ -96,31 +96,6 @@ class Type3Statics:
     postphase: np.ndarray   # [K] complex128 (incl. kernel-FT deconv)
 
 
-def _next_tile_friendly(n: int, rank: int) -> int:
-    """Smallest even 5-smooth size >= n that the Pallas tile machinery
-    serves well.
-
-    Any nf >= the minimum is mathematically valid (``gamma`` rescales
-    with it), and on TPU the type-3 fine grid is served by the
-    matmul-DFT — it is never FFT'd — so FINUFFT's plain 5-smooth
-    rounding buys nothing here. What matters is that nf has a tile
-    divisor from binning's preference lists: the round-5 stage split
-    found the 2D case's 5-smooth nf=270 (no 32/64 divisor) degenerated
-    the inner type-2 to ONE 540^2 tile with chunk 256, putting the
-    inner interp at 12.9 of the 17.0 ms total. Rank <= 2 rounds to a
-    multiple of 32 (tile 32/64/96 available; the inner type-2's own
-    fine grid 2n is then a 5-smooth multiple of 64); rank 3 rounds to
-    a multiple of 8 (volume-sensitive — +1 step is ~4% here — and
-    mult-of-8 5-smooth sizes always carry an axis-pref divisor).
-    5-smoothness is kept because the spread-only plan validates it
-    (reference grid-constraint parity, ops/nufft_ops.py)."""
-    step = 32 if rank <= 2 else 8
-    m = -(-n // step) * step
-    while next_smooth_integer(m) != m:      # 5-smooth multiples only
-        m += step
-    return m
-
-
 def compute_type3_statics(x64: np.ndarray, t64: np.ndarray,
                           fft_direction: str, tol: float,
                           real_dt=np.float64) -> Type3Statics:
@@ -159,7 +134,7 @@ def compute_type3_statics(x64: np.ndarray, t64: np.ndarray,
     for d in range(rank):
         n = int(2.0 * sigma * t_safe[d] * x_safe[d] / math.pi + width + 1)
         n = max(n, 2 * width)
-        n = _next_tile_friendly(n, rank)
+        n = next_smooth_integer(n)
         fine_shape.append(n)
         gamma[d] = n / (2.0 * sigma * t_safe[d])
     fine_shape = tuple(fine_shape)

@@ -1,28 +1,29 @@
 """Advanced options for the NUFFT ops.
 
 API parity with the reference's pydantic options model
-(reference: python/ops/nufft_options.py:25-273, proto/nufft_options.proto).
-The FFTW options are accepted for drop-in compatibility but have no effect
-on TPU (XLA's FFT needs no planning); they round-trip through serialization
-unchanged.
+(reference: python/ops/nufft_options.py:25-273, proto/nufft_options.proto),
+as plain validated dataclasses: fields are checked on construction and
+on assignment, and an invalid value raises ``ValueError``. The FFTW
+options are accepted for drop-in compatibility but have no effect (XLA's
+FFT needs no planning); they round-trip through serialization unchanged.
+protobuf is imported only by ``to_proto``/``from_proto``.
 
-TPU-specific extensions live on ``Options`` under clearly-named fields and
-default to automatic behavior.
+Extensions beyond the reference live on ``Options`` under clearly-named
+fields and default to automatic behavior.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Optional
-
-import pydantic
 
 
 class FftwPlanningRigor(enum.IntEnum):
     """Planning rigor of the FFTW library (compatibility only).
 
-    On TPU the FFT is compiled by XLA and there is no planning stage, so
-    this option has no effect. It is retained so that code written against
+    The FFT is compiled by XLA and there is no planning stage, so this
+    option has no effect. It is retained so that code written against
     the reference keeps working (reference: nufft_options.py:25-93).
 
     - **AUTO**: selects the planning rigor automatically.
@@ -68,7 +69,38 @@ class PointsRange(enum.IntEnum):
         return cls(int(pb))
 
 
-class DebuggingOptions(pydantic.BaseModel):
+class _Validated:
+    """Runs the field's ``_check_<name>`` (if any) on every assignment,
+    including the dataclass constructor's."""
+
+    def __setattr__(self, name, value):
+        check = getattr(type(self), f"_check_{name}", None)
+        if check is not None:
+            value = check(value)
+        object.__setattr__(self, name, value)
+
+
+def _check_bool(name):
+    def check(v):
+        if not isinstance(v, (bool, int)) or v not in (0, 1):
+            raise ValueError(f"{name} must be a bool, got {v!r}")
+        return bool(v)
+    return staticmethod(check)
+
+
+def _check_enum(enum_cls, name):
+    def check(v):
+        try:
+            return enum_cls(v)
+        except ValueError:
+            raise ValueError(
+                f"{name} must be a {enum_cls.__name__}, got {v!r}"
+            ) from None
+    return staticmethod(check)
+
+
+@dataclasses.dataclass
+class DebuggingOptions(_Validated):
     """Debugging options (reference: nufft_options.py:160-186).
 
     Attributes:
@@ -78,9 +110,9 @@ class DebuggingOptions(pydantic.BaseModel):
             for out-of-range points become NaN so the violation is
             detectable under jit.
     """
-    model_config = pydantic.ConfigDict(validate_assignment=True)
-
     check_points_range: bool = False
+
+    _check_check_points_range = _check_bool("check_points_range")
 
     def to_proto(self):
         from tensorflow_nufft_tpu.proto import nufft_options_pb2
@@ -93,17 +125,18 @@ class DebuggingOptions(pydantic.BaseModel):
         return cls(check_points_range=pb.check_points_range)
 
 
-class FftwOptions(pydantic.BaseModel):
+@dataclasses.dataclass
+class FftwOptions(_Validated):
     """FFTW library options, compatibility only (reference:
     nufft_options.py:189-219).
 
     Attributes:
         planning_rigor: Controls the rigor (and time) of the planning
-            process. No effect on TPU.
+            process. No effect (XLA plans its own FFTs).
     """
-    model_config = pydantic.ConfigDict(validate_assignment=True)
-
     planning_rigor: FftwPlanningRigor = FftwPlanningRigor.AUTO
+
+    _check_planning_rigor = _check_enum(FftwPlanningRigor, "planning_rigor")
 
     def to_proto(self):
         from tensorflow_nufft_tpu.proto import nufft_options_pb2
@@ -116,24 +149,46 @@ class FftwOptions(pydantic.BaseModel):
         return cls(planning_rigor=FftwPlanningRigor(int(pb.planning_rigor)))
 
 
-class Options(pydantic.BaseModel):
+def _check_one_of(name, allowed):
+    def check(v):
+        if v not in allowed:
+            raise ValueError(
+                f"{name} must be one of "
+                f"{', '.join(repr(a) for a in allowed)}, got {v!r}")
+        return v
+    return staticmethod(check)
+
+
+def _check_instance(name, cls):
+    def check(v):
+        if not isinstance(v, cls):
+            raise ValueError(
+                f"{name} must be a {cls.__name__}, got {v!r}")
+        return v
+    return staticmethod(check)
+
+
+@dataclasses.dataclass
+class Options(_Validated):
     """Advanced options for `nufft` (reference: nufft_options.py:222-273).
 
     Attributes:
         debugging: Options for debugging. See ``DebuggingOptions``.
-        fftw: Options for the FFTW library (no effect on TPU).
+        fftw: Options for the FFTW library (no effect).
         max_batch_size: Optional int. Maximum number of transforms computed
             at once; larger batches are processed in chunks of this size to
             bound fine-grid memory.
         points_range: A ``PointsRange``. Supported range of the nonuniform
             points. Defaults to EXTENDED.
-        backend: TPU extension. One of 'auto', 'xla', 'pallas', 'native'.
-            Selects the spread/interp kernel implementation; 'auto' picks
-            the fastest available for the device and problem. 'native'
-            runs the C++/OpenMP host engine via a host callback (CPU
-            only; forward pass under jit, gradients via the NUFFT-level
-            custom VJP).
-        upsampling_factor: TPU extension. Optional override of the fine-grid
+        backend: Extension. One of 'auto', 'xla', 'pallas', 'native'.
+            Selects the spread/interp kernel implementation. 'pallas'
+            runs the tile-exclusive spread kernel (compiled through
+            Triton on a GPU, interpreted on the CPU) and raises where it
+            cannot serve the transform; 'xla' the portable scatter/gather
+            path; 'auto' picks per device and problem. 'native' runs the
+            C++/OpenMP host engine via a host callback (CPU only; forward
+            pass under jit, gradients via the NUFFT-level custom VJP).
+        upsampling_factor: Extension. Optional override of the fine-grid
             oversampling factor sigma (> 1.0); None selects automatically.
         show_warnings: bool. Emit Python warnings for silently adjusted
             parameters (e.g. a requested tolerance below machine
@@ -155,11 +210,9 @@ class Options(pydantic.BaseModel):
             (nufft_options.h:62-70, dispatched at
             nufft_plan.cc:1291-1307); internal-only, not serialized.
     """
-    model_config = pydantic.ConfigDict(validate_assignment=True)
-
-    debugging: DebuggingOptions = pydantic.Field(
+    debugging: DebuggingOptions = dataclasses.field(
         default_factory=DebuggingOptions)
-    fftw: FftwOptions = pydantic.Field(default_factory=FftwOptions)
+    fftw: FftwOptions = dataclasses.field(default_factory=FftwOptions)
     max_batch_size: Optional[int] = None
     points_range: PointsRange = PointsRange.EXTENDED
     backend: str = "auto"
@@ -168,44 +221,32 @@ class Options(pydantic.BaseModel):
     verbosity: int = 0
     kernel_evaluation_method: str = "auto"
 
-    @pydantic.field_validator("verbosity")
-    @classmethod
-    def _check_verbosity(cls, v):
-        if v < 0:
+    _check_debugging = _check_instance("debugging", DebuggingOptions)
+    _check_fftw = _check_instance("fftw", FftwOptions)
+    _check_points_range = _check_enum(PointsRange, "points_range")
+    _check_backend = _check_one_of(
+        "backend", ("auto", "xla", "pallas", "native"))
+    _check_show_warnings = _check_bool("show_warnings")
+    _check_kernel_evaluation_method = _check_one_of(
+        "kernel_evaluation_method", ("auto", "direct", "horner"))
+
+    @staticmethod
+    def _check_verbosity(v):
+        if not isinstance(v, int) or v < 0:
             raise ValueError(f"verbosity must be >= 0, got {v}")
         return v
 
-    @pydantic.field_validator("kernel_evaluation_method")
-    @classmethod
-    def _check_kernel_eval(cls, v):
-        if v not in ("auto", "direct", "horner"):
-            raise ValueError(
-                f"kernel_evaluation_method must be one of 'auto', "
-                f"'direct', 'horner', got {v!r}")
-        return v
-
-    @pydantic.field_validator("max_batch_size")
-    @classmethod
-    def _check_max_batch_size(cls, v):
-        if v is not None and v < 1:
+    @staticmethod
+    def _check_max_batch_size(v):
+        if v is not None and (not isinstance(v, int) or v < 1):
             raise ValueError(f"max_batch_size must be >= 1, got {v}")
         return v
 
-    @pydantic.field_validator("backend")
-    @classmethod
-    def _check_backend(cls, v):
-        if v not in ("auto", "xla", "pallas", "native"):
-            raise ValueError(
-                f"backend must be one of 'auto', 'xla', 'pallas', "
-                f"'native', got {v!r}")
-        return v
-
-    @pydantic.field_validator("upsampling_factor")
-    @classmethod
-    def _check_upsampling(cls, v):
+    @staticmethod
+    def _check_upsampling_factor(v):
         if v is not None and v <= 1.0:
             raise ValueError(f"upsampling_factor must be > 1.0, got {v}")
-        return v
+        return None if v is None else float(v)
 
     def to_proto(self):
         from tensorflow_nufft_tpu.proto import nufft_options_pb2
@@ -215,7 +256,7 @@ class Options(pydantic.BaseModel):
         if self.max_batch_size is not None:
             pb.max_batch_size = self.max_batch_size
         pb.points_range = int(self.points_range)
-        # TPU extension fields: only set when non-default, so payloads
+        # Extension fields: only set when non-default, so payloads
         # that use only reference options stay byte-identical.
         if self.backend != "auto":
             pb.backend = self.backend

@@ -1,19 +1,21 @@
 """Multi-chip sharded NUFFT via shard_map over a jax.sharding.Mesh.
 
 The reference has no distributed layer at all (SURVEY.md section 2:
-device placement is delegated to TF's runtime). This module is the
-TPU-native extension: transforms scale over a device mesh along two
-orthogonal axes:
+device placement is delegated to TF's runtime). This module is an
+extension: transforms scale over a device mesh along two orthogonal
+axes:
 
   - **data axis**: independent transforms (batch/coils) are sharded;
     no communication at all.
   - **points axis**: one transform's nonuniform points are sharded;
     type-2 needs no collectives (each device evaluates its own points
     from a replicated grid); type-1 spreads locally and reduces the fine
-    grid with a single ``psum`` over ICI — the collective equivalent of
-    the reference's atomic adds into shared memory.
+    grid with a single ``psum`` (NVLink between GPUs) — the collective
+    equivalent of the reference's atomic adds into shared memory.
 
-Everything is planar-real (TPU native; see ``tensorflow_nufft_tpu.planar``).
+The mesh follows the algorithm's axes only: every device reaches every
+other at the same rate. Everything is planar-real (see
+``tensorflow_nufft_tpu.planar``).
 Gradients work through ``shard_map`` (psum transposes automatically).
 """
 
@@ -53,17 +55,10 @@ def _make_spec(transform_type, fft_direction, rank, grid_shape, dtype,
     )
 
 
-def _vary_over(x, axes):
-    """Marks ``x`` as varying over ``axes`` it is not already varying
-    over (shard_map vma bookkeeping; the transform bodies treat their
-    inputs as device-local data along those axes)."""
-    have = jax.typeof(x).vma
-    missing = tuple(a for a in axes if a not in have)
-    if not missing:
-        return x
-    if hasattr(jax.lax, "pcast"):       # pvary deprecated in newer jax
-        return jax.lax.pcast(x, missing, to="varying")
-    return jax.lax.pvary(x, missing)
+# shard_map's varying-manual-axes check is off wherever a body may run
+# the spread kernel: a Pallas kernel's values carry no mesh-axis
+# annotation, and the interpreter's slicing of its refs fails the check.
+_CHECK_VMA = False
 
 
 def sharded_nufft(source: jax.Array,
@@ -115,16 +110,7 @@ def sharded_nufft(source: jax.Array,
         out_spec = P(da, *grid_dims)
     pts_spec = P(pa, None)
 
-    active = tuple(a for a in (da, pa) if a)
-
     def local_fn(src, pts):
-        # The per-device inputs vary over the ACTIVE mesh axes from
-        # this point on (sharded batch/points); mark them so
-        # shard_map's varying-manual-axes check validates the
-        # collectives. Inactive axes stay replicated — varying over
-        # them would contradict the replicated out_specs.
-        src = _vary_over(src, active)
-        pts = _vary_over(pts, active)
         out = nufft_core_planar(src, pts, spec)
         if transform_type == "type_1" and pa is not None:
             # Each device spread only its local points; reduce fine-grid
@@ -136,7 +122,7 @@ def sharded_nufft(source: jax.Array,
     fn = jax.shard_map(
         local_fn, mesh=mesh,
         in_specs=(src_spec, pts_spec),
-        out_specs=out_spec)
+        out_specs=out_spec, check_vma=_CHECK_VMA)
     return fn(source, points)
 
 
@@ -220,16 +206,13 @@ def sharded_nufft_grid(source: jax.Array,
         # ([ndev, nf, slab] with in_spec P(grid_axis, ...)): each device
         # holds only ITS [nf, slab] block — replicating the full stack
         # (or inlining it as a jit literal) would defeat the memory
-        # scaling and bloat the remote-compile payload at large grids.
+        # scaling at large grids.
         rdt = np.float32 if points.dtype == np.float32 else np.float64
         c0 = jnp.asarray(np.stack(np.split(c0, ndev, axis=1)), rdt)
         s0 = jnp.asarray(np.stack(np.split(s0, ndev, axis=1)), rdt)
 
         def local_fn(src, pts, cd, sd):
-            src = _vary_over(src, (grid_axis,))
-            pts = _vary_over(pts, (grid_axis,))
-            cd = _vary_over(cd[0], (grid_axis,))
-            sd = _vary_over(sd[0], (grid_axis,))
+            cd, sd = cd[0], sd[0]
             batch = src.shape[0]
             pr = fold_and_rescale_split(pts, plan.fine_shape,
                                         spec.points_range)
@@ -254,11 +237,11 @@ def sharded_nufft_grid(source: jax.Array,
             local_fn, mesh=mesh,
             in_specs=(P(None, None, None), P(None, None),
                       P(grid_axis, None, None), P(grid_axis, None, None)),
-            out_specs=P(None, grid_axis, *grid_dims[1:], None))
+            out_specs=P(None, grid_axis, *grid_dims[1:], None),
+            check_vma=_CHECK_VMA)
         return fn(source, points, c0, s0)
 
     def local_fn(src, pts):
-        pts = _vary_over(pts, (grid_axis,))
         full_modes = jax.lax.all_gather(
             src, grid_axis, axis=1, tiled=True)       # [B, *grid, 2]
         return nufft_core_planar(full_modes, pts, spec)
@@ -357,14 +340,7 @@ def sharded_nufft_type3(source: jax.Array,
 
     from tensorflow_nufft_tpu.planar import pmul
 
-    active = tuple(a for a in (da, pa) if a)
-
     def local_fn(src, xi_l, pre_l, theta_l, post_l):
-        src = _vary_over(src, active)
-        xi_l = _vary_over(xi_l, active)
-        pre_l = _vary_over(pre_l, active)
-        theta_l = _vary_over(theta_l, active)
-        post_l = _vary_over(post_l, active)
         m_local = src.shape[1]
 
         def one_chunk(src_c):
@@ -376,11 +352,8 @@ def sharded_nufft_type3(source: jax.Array,
             if pa is not None:
                 # Each device spread only its local points: reduce the
                 # fine grid over the points axis (linear, so reducing
-                # the raw spread is exact). The psum result is
-                # axis-invariant; re-mark it varying so the per-device
-                # inner type-2 (local theta shard) composes under the
-                # vma check.
-                fine = _vary_over(jax.lax.psum(fine, pa), (pa,))
+                # the raw spread is exact).
+                fine = jax.lax.psum(fine, pa)
             grid = jnp.moveaxis(
                 fine.reshape((batch, 2) + st.fine_shape), 1, -1)
             vals = nufft_core_planar(grid, theta_l,
@@ -400,7 +373,7 @@ def sharded_nufft_type3(source: jax.Array,
         local_fn, mesh=mesh,
         in_specs=(P(da, pa, None), P(pa, None), P(pa, None),
                   P(pa, None), P(pa, None)),
-        out_specs=P(da, pa, None))
+        out_specs=P(da, pa, None), check_vma=_CHECK_VMA)
     return fn(source, xi, pre, theta, post)
 
 
@@ -409,18 +382,6 @@ def sharded_nufft_type3(source: jax.Array,
 # ---------------------------------------------------------------------------
 
 
-
-def _planned_vma_check() -> bool:
-    """Whether the planned sharded paths can run shard_map's
-    varying-manual-axes verification. On TPU the Pallas kernels are
-    sealed custom calls and checking stays ON; in interpret mode (CPU
-    tests) the Pallas HLO interpreter evaluates the kernel body inside
-    shard_map and does not propagate vma onto in-kernel index
-    arithmetic (program ids, loop counters), tripping the checker on
-    every ref read — so checking is disabled ONLY there (the unplanned
-    sharded paths keep it on everywhere)."""
-    from tensorflow_nufft_tpu.kernels.pallas_spread import use_interpret
-    return not use_interpret()
 
 @_functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
 def _sharded_planned_call(source, op):
@@ -512,22 +473,21 @@ _sharded_from_slots_call.defvjp(_sharded_from_slots_fwd,
 class ShardedPlannedNufft:
     """Planned planar NUFFT over a device mesh.
 
-    Combines the planned (guru) pipeline — binning, chunk payloads and
-    ES kernel matrices hoisted to plan time (``planar.PlannedNufft``) —
-    with SPMD execution: the batch/coil axis shards over ``data_axis``
-    and the point set over ``points_axis``. Each device owns one point
-    shard's planned artifacts, built host-side per shard and stacked on
-    a leading shard axis that ``shard_map`` splits over the mesh; the
-    Pallas kernels then run unchanged on device-local data. Type-1
-    psums the (deconvolved) mode outputs over the points axis — the
-    collective dual of the reference's atomic adds; type-2 needs no
-    collectives. No reference counterpart (it has no distributed layer,
-    SURVEY.md section 2).
+    Combines the planned (guru) pipeline — fold, tile binning and
+    slot-order kernel coordinates hoisted to plan time
+    (``planar.PlannedNufft``) — with SPMD execution: the batch/coil axis
+    shards over ``data_axis`` and the point set over ``points_axis``.
+    Each device owns one point shard's planned artifacts, built per
+    shard and stacked on a leading shard axis that ``shard_map`` splits
+    over the mesh; the planned stages then run unchanged on
+    device-local data. Type-1 psums the (deconvolved) mode outputs over
+    the points axis — the collective dual of the reference's atomic
+    adds; type-2 needs no collectives. No reference counterpart (it has
+    no distributed layer, SURVEY.md section 2).
 
     Differentiable w.r.t. ``source`` via the shared-artifact adjoint.
-    Falls back to the unplanned ``sharded_nufft`` where the planned
-    Pallas path is not served (off-TPU tests still shard; they run the
-    kernels in interpret mode).
+    Falls back to the unplanned ``sharded_nufft`` where the spread
+    kernel does not serve the configuration.
 
     Args:
         points: concrete ``[M, rank]`` radians in ``[-pi, pi]``. ``M``
@@ -582,37 +542,17 @@ class ShardedPlannedNufft:
         self.tol = p0.tol
         self.options = p0.options
         self._adjoint = None
-        # Equal shard sizes -> identical static geometry/level across
-        # shards (choose_geometry is a pure function of
-        # (fine_shape, width, m)).
-        self._planned = all(sh._planned for sh in self._shards)
+        # Equal shard sizes -> identical static geometry across shards
+        # (choose_geometry is a pure function of (fine_shape, width, m)).
+        self._planned = p0._planned
         if not self._planned:
             return
         self.plan = p0.plan
         self.geom = p0.geom
-        self._level = p0._level
-        assert all(sh.geom == p0.geom and sh._level == p0._level
-                   for sh in self._shards)
-        # Banded rank-3 shards: the band height is static and must be
-        # uniform across the mesh — take the max and re-clip each
-        # shard's origins to it (coverage only grows; see
-        # binning.compute_band_origins).
-        bands = [getattr(sh, "band_info", None) for sh in self._shards]
-        self._band = None
-        per_shard = [(sh.points_resc, sh.binned,
-                      sh.mats if self._level == "mats" else sh.coords)
-                     for sh in self._shards]
-        if self._level == "binned" and all(
-                b is not None for b in bands):
-            band = max(b[0] for b in bands)
-            e0 = self.geom.ext[0]
-            if band < e0:
-                self._band = band
-                per_shard = [
-                    arts + (jnp.minimum(b[1], e0 - band),)
-                    for arts, b in zip(per_shard, bands)]
         self._arts = jax.tree.map(
-            lambda *xs: jnp.stack(xs), *per_shard)
+            lambda *xs: jnp.stack(xs),
+            *[(sh.points_resc, sh.binned, sh.coords)
+              for sh in self._shards])
         # [s, S] per-shard slot masks (1 where the slot holds a real
         # point) for the slot-order apply surface; eager, plan time.
         self._masks = jnp.stack([sh.slot_mask for sh in self._shards])
@@ -638,33 +578,33 @@ class ShardedPlannedNufft:
             self._adjoint = adj
         return self._adjoint
 
-    def _specs(self):
-        rank = len(self.grid_shape)
-        da, pa = self.data_axis, self.points_axis
-        grid_dims = (None,) * (rank + 1)
-        if self.transform_type == "type_1":
-            src_spec = P(da, pa, None)
-            out_spec = P(da, *grid_dims)
-        else:
-            src_spec = P(da, *grid_dims)
-            out_spec = P(da, pa, None)
+    def _shard_map(self, local_fn, in_specs, out_spec, *args):
+        """shard_map over (args..., artifacts): ``local_fn`` receives the
+        device-local arguments and the shard's (points_resc, binned,
+        coords) with the leading shard axis stripped."""
+        pa = self.points_axis
         arts_spec = jax.tree.map(
             lambda x: P(pa, *(None,) * (x.ndim - 1)), self._arts)
-        return src_spec, out_spec, arts_spec
 
-    def _local_arts(self, arts, active):
-        """Strips the leading shard axis from the shard_mapped artifact
-        tree and marks it varying over the active mesh axes."""
-        arts = jax.tree.map(lambda x: _vary_over(x[0], active), arts)
-        if len(arts) == 4:
-            points_resc, binned, aux, zorigins = arts
-            band_info = (self._band, zorigins)
-        else:
-            points_resc, binned, aux = arts
-            band_info = None
-        mats = aux if self._level == "mats" else None
-        coords = None if self._level == "mats" else aux
-        return points_resc, binned, mats, coords, band_info
+        def wrapped(*xs):
+            *xs, arts = xs
+            return local_fn(*xs, jax.tree.map(lambda x: x[0], arts))
+
+        fn = jax.shard_map(wrapped, mesh=self.mesh,
+                           in_specs=tuple(in_specs) + (arts_spec,),
+                           out_specs=out_spec, check_vma=_CHECK_VMA)
+        return fn(*args, self._arts)
+
+    def _grid_spec(self):
+        return P(self.data_axis, *(None,) * (len(self.grid_shape) + 1))
+
+    def _points_spec(self):
+        return P(self.data_axis, self.points_axis, None)
+
+    def _reduce_modes(self, out):
+        if self.points_axis:
+            out = jax.lax.psum(out, self.points_axis)
+        return out
 
     # -- applies ------------------------------------------------------
 
@@ -702,57 +642,36 @@ class ShardedPlannedNufft:
         return _sharded_planned_call(source, self)
 
     def _apply(self, source):
-        from tensorflow_nufft_tpu.fft.planar_fft import (
-            amplify_pad_dft_tiled, dft_truncate_deconvolve_tiled)
-        from tensorflow_nufft_tpu.kernels.pallas_interp import (
-            interp_pallas_tiled)
-        from tensorflow_nufft_tpu.kernels.pallas_spread import (
-            spread_pallas_tiles)
-
-        da, pa = self.data_axis, self.points_axis
-        active = tuple(a for a in (da, pa) if a)
-        src_spec, out_spec, arts_spec = self._specs()
+        from tensorflow_nufft_tpu.kernels import binning
+        from tensorflow_nufft_tpu.planar import (
+            _channel_major, _planar_rows, planned_interp,
+            planned_spread_modes)
         plan, geom = self.plan, self.geom
-        transform_type = self.transform_type
-        check = _planned_vma_check()
-        vary = active if check else ()
-        out_vma = frozenset(active) if check else None
+
+        if self.transform_type == "type_1":
+            def local_fn(src, arts):
+                _, binned, coords = arts
+                vals = binning.to_slots(
+                    _channel_major(src).astype(jnp.float32), binned)
+                out = planned_spread_modes(vals, coords,
+                                           binned.tile_bounds, plan, geom,
+                                           src.shape[0])
+                return self._reduce_modes(out).astype(src.dtype)
+            return self._shard_map(local_fn, (self._points_spec(),),
+                                   self._grid_spec(), source)
 
         def local_fn(src, arts):
-            src = _vary_over(src, vary)
-            points_resc, binned, mats, coords, band_info = \
-                self._local_arts(arts, vary)
-            b = src.shape[0]
-            if transform_type == "type_1":
-                mloc = src.shape[1]
-                src_cm = jnp.moveaxis(src, -1, 1).reshape(2 * b, mloc)
-                tiles, _ = spread_pallas_tiles(
-                    src_cm.astype(jnp.float32), points_resc, plan,
-                    binned=binned, mats=mats, coords=coords, geom=geom,
-                    out_vma=out_vma, band_info=band_info)
-                out = dft_truncate_deconvolve_tiled(tiles, plan, geom, b)
-                if pa:
-                    out = jax.lax.psum(out, pa)
-                return out.astype(src.dtype)
-            tiles = amplify_pad_dft_tiled(src, plan, geom)
-            values = interp_pallas_tiled(
-                tiles, points_resc, plan, geom, binned=binned,
-                mats=mats, coords=coords, out_vma=out_vma,
-                band_info=band_info)
-            mloc = values.shape[-1]
-            return jnp.moveaxis(values.reshape(b, 2, mloc),
-                                1, -1).astype(src.dtype)
+            points_resc, _, _ = arts
+            values = planned_interp(src, points_resc, plan)
+            return _planar_rows(values, src.shape[0]).astype(src.dtype)
+        return self._shard_map(local_fn, (self._grid_spec(),),
+                               self._points_spec(), source)
 
-        fn = jax.shard_map(local_fn, mesh=self.mesh,
-                           in_specs=(src_spec, arts_spec),
-                           out_specs=out_spec, check_vma=check)
-        return fn(source, self._arts)
-
-    # -- fused normal operator ----------------------------------------
+    # -- normal operator ----------------------------------------------
 
     def slot_weights(self, weights) -> jax.Array:
         """Per-point real weights [M] -> per-shard chunk-slot order
-        ([S, NC*chunk]) for ``normal``; point order must match the
+        ([s, S]) for ``normal``; point order must match the
         constructor's ``points``."""
         w = _np.asarray(weights)
         if w.shape != (self.num_points,):
@@ -766,12 +685,12 @@ class ShardedPlannedNufft:
                           for i, sh in enumerate(self._shards)])
 
     def normal(self, source, slot_w=None):
-        """Fused normal operator ``A^H W A`` over the mesh: the type-2
-        forward and type-1 adjoint run back-to-back on each device with
-        the intermediate point values kept in chunk-slot order (no
-        point-order permutations), then ONE psum of the mode outputs
-        over the points axis per apply. ``slot_w`` comes from
-        ``slot_weights`` (treated as non-differentiable plan data).
+        """Normal operator ``A^H W A`` over the mesh: the type-2 forward
+        and type-1 adjoint run back-to-back on each device with the
+        intermediate point values weighted in slot order, then ONE psum
+        of the mode outputs over the points axis per apply. ``slot_w``
+        comes from ``slot_weights`` (treated as non-differentiable plan
+        data).
 
         [B, *grid, 2] -> [B, *grid, 2]; self-adjoint custom VJP.
         """
@@ -787,66 +706,26 @@ class ShardedPlannedNufft:
         return _sharded_normal_call(source, slot_w, self)
 
     def _apply_normal(self, source, slot_w=None):
-        from tensorflow_nufft_tpu.fft.planar_fft import (
-            amplify_pad_dft_tiled, dft_truncate_deconvolve_tiled)
-        from tensorflow_nufft_tpu.kernels.pallas_interp import (
-            interp_pallas_tiled)
-        from tensorflow_nufft_tpu.kernels.pallas_spread import (
-            spread_pallas_tiles)
-
-        da, pa = self.data_axis, self.points_axis
-        active = tuple(a for a in (da, pa) if a)
-        rank = len(self.grid_shape)
-        grid_dims = (None,) * (rank + 1)
-        src_spec = P(da, *grid_dims)
-        arts_spec = jax.tree.map(
-            lambda x: P(pa, *(None,) * (x.ndim - 1)), self._arts)
+        from tensorflow_nufft_tpu.kernels import binning
+        from tensorflow_nufft_tpu.planar import (
+            planned_interp, planned_spread_modes)
         t2 = self if self.transform_type == "type_2" else self.adjoint()
-        t1 = t2.adjoint()
-        t2_plan, t1_plan, geom = t2.plan, t1.plan, self.geom
-        check = _planned_vma_check()
-        vary = active if check else ()
-        out_vma = frozenset(active) if check else None
+        t2_plan, t1_plan, geom = t2.plan, t2.adjoint().plan, self.geom
+        weights = (jnp.ones_like(self._masks) if slot_w is None
+                   else jax.lax.stop_gradient(slot_w))
 
-        def local_fn(src, arts, sw):
-            src = _vary_over(src, vary)
-            points_resc, binned, mats, coords, band_info = \
-                self._local_arts(arts, vary)
-            b = src.shape[0]
-            tiles = amplify_pad_dft_tiled(src, t2_plan, geom)
-            flat = interp_pallas_tiled(
-                tiles, points_resc, t2_plan, geom, binned=binned,
-                mats=mats, coords=coords, chunk_order=True,
-                out_vma=out_vma,
-                band_info=band_info)                 # [B2, NC*chunk]
-            if sw is not None:
-                sw_l = _vary_over(jax.lax.stop_gradient(sw[0]), vary)
-                flat = flat * sw_l[None, :]
-            tiles1, _ = spread_pallas_tiles(
-                None, points_resc, t1_plan, binned=binned, mats=mats,
-                coords=coords, values_slots=flat, geom=geom,
-                out_vma=out_vma, band_info=band_info)
-            out = dft_truncate_deconvolve_tiled(tiles1, t1_plan, geom, b)
-            if pa:
-                out = jax.lax.psum(out, pa)
-            return out.astype(src.dtype)
+        def local_fn(src, sw, arts):
+            points_resc, binned, coords = arts
+            vals = planned_interp(src, points_resc, t2_plan)
+            flat = binning.to_slots(vals.astype(jnp.float32), binned)
+            flat = flat * sw[0][None, :]
+            out = planned_spread_modes(flat, coords, binned.tile_bounds,
+                                       t1_plan, geom, src.shape[0])
+            return self._reduce_modes(out).astype(src.dtype)
 
-        in_specs = (src_spec, arts_spec,
-                    None if slot_w is None else P(pa, None))
-        args = (source, self._arts, slot_w)
-        if slot_w is None:
-            # shard_map specs must match the argument tree; drop the
-            # missing leaf entirely.
-            def local2(src, arts):
-                return local_fn(src, arts, None)
-            fn = jax.shard_map(local2, mesh=self.mesh,
-                               in_specs=in_specs[:2],
-                               out_specs=src_spec, check_vma=check)
-            return fn(source, self._arts)
-        fn = jax.shard_map(local_fn, mesh=self.mesh,
-                           in_specs=in_specs, out_specs=src_spec,
-                           check_vma=check)
-        return fn(*args)
+        return self._shard_map(
+            local_fn, (self._grid_spec(), P(self.points_axis, None)),
+            self._grid_spec(), source, weights)
 
     # -- chunk-slot-order apply surface -------------------------------
     # Sharded dual of planar.PlannedNufft's slot surface: per-point
@@ -900,58 +779,28 @@ class ShardedPlannedNufft:
         self._check_slot_shape(slot_values, "from_slots")
         return _sharded_from_slots_call(slot_values, self)
 
-    def _conv_shard_map(self, local_fn, arg):
-        da, pa = self.data_axis, self.points_axis
-        active = tuple(a for a in (da, pa) if a)
-        check = _planned_vma_check()
-        vary = active if check else ()
-        spec = P(da, pa, None)
-        arts_spec = jax.tree.map(
-            lambda x: P(pa, *(None,) * (x.ndim - 1)), self._arts)
+    def _permute(self, values, to_slots: bool):
+        from tensorflow_nufft_tpu.kernels import binning
+        from tensorflow_nufft_tpu.planar import _channel_major, _planar_rows
+        move = binning.to_slots if to_slots else binning.from_slots
 
-        def wrapped(x, arts):
-            x = _vary_over(x, vary)
-            return local_fn(x, self._local_arts(arts, vary))
+        def local_fn(vals, arts):
+            _, binned, _ = arts
+            flat = move(_channel_major(vals), binned)
+            return _planar_rows(flat, vals.shape[0])
 
-        fn = jax.shard_map(wrapped, mesh=self.mesh,
-                           in_specs=(spec, arts_spec), out_specs=spec,
-                           check_vma=check)
-        return fn(arg, self._arts)
+        spec = self._points_spec()
+        return self._shard_map(local_fn, (spec,), spec, values)
 
     def _to_slots(self, values):
-        from tensorflow_nufft_tpu.kernels import binning
-
-        def local_fn(vals, arts):
-            _, binned, _, _, _ = arts
-            b = vals.shape[0]
-            vc = jnp.moveaxis(vals, -1, 1).reshape(2 * b, -1)
-            flat = binning.build_values_payload(
-                vc, binned, self.geom)[:2 * b]
-            s = flat.shape[-1]
-            return jnp.moveaxis(flat.reshape(b, 2, s), 1,
-                                -1).astype(vals.dtype)
-
-        return self._conv_shard_map(local_fn, values)
+        return self._permute(values, to_slots=True)
 
     def _from_slots(self, slot_values):
-        from tensorflow_nufft_tpu.kernels import binning
-
-        def local_fn(vals, arts):
-            _, binned, _, _, _ = arts
-            b = vals.shape[0]
-            vc = jnp.moveaxis(vals, -1, 1).reshape(2 * b, -1)
-            flat = binning.scatter_chunked(vc.astype(jnp.float32),
-                                           binned)
-            m = flat.shape[-1]
-            return jnp.moveaxis(flat.reshape(b, 2, m), 1,
-                                -1).astype(vals.dtype)
-
-        return self._conv_shard_map(local_fn, slot_values)
+        return self._permute(slot_values, to_slots=False)
 
     def apply_to_slots(self, source) -> jax.Array:
         """Type-2 apply producing shard-major SLOT-ORDER values
-        [B, s*S, 2] — no per-call un-permute gather on any device.
-        Differentiable w.r.t. ``source``."""
+        [B, s*S, 2]. Differentiable w.r.t. ``source``."""
         if self.transform_type != "type_2":
             raise ValueError(
                 "apply_to_slots is the type-2 (grid -> points) apply; "
@@ -986,62 +835,31 @@ class ShardedPlannedNufft:
         return _sharded_slots_call(slot_values, self)
 
     def _apply_slots(self, source):
-        from tensorflow_nufft_tpu.fft.planar_fft import (
-            amplify_pad_dft_tiled, dft_truncate_deconvolve_tiled)
-        from tensorflow_nufft_tpu.kernels.pallas_interp import (
-            interp_pallas_tiled)
-        from tensorflow_nufft_tpu.kernels.pallas_spread import (
-            spread_pallas_tiles)
-
-        da, pa = self.data_axis, self.points_axis
-        active = tuple(a for a in (da, pa) if a)
-        rank = len(self.grid_shape)
-        grid_dims = (None,) * (rank + 1)
-        slot_spec = P(da, pa, None)
-        grid_spec = P(da, *grid_dims)
-        arts_spec = jax.tree.map(
-            lambda x: P(pa, *(None,) * (x.ndim - 1)), self._arts)
+        from tensorflow_nufft_tpu.kernels import binning
+        from tensorflow_nufft_tpu.planar import (
+            _channel_major, _planar_rows, planned_interp,
+            planned_spread_modes)
         plan, geom = self.plan, self.geom
-        transform_type = self.transform_type
-        check = _planned_vma_check()
-        vary = active if check else ()
-        out_vma = frozenset(active) if check else None
+        mask_spec = P(self.points_axis, None)
 
-        def local_fn(src, arts, mask):
-            src = _vary_over(src, vary)
-            mask = _vary_over(mask[0], vary)
-            points_resc, binned, mats, coords, band_info = \
-                self._local_arts(arts, vary)
-            b = src.shape[0]
-            keep = mask > 0
-            if transform_type == "type_1":
-                s = src.shape[1]
-                src_cm = jnp.moveaxis(src, -1, 1).reshape(2 * b, s)
-                src_cm = jnp.where(keep[None, :],
-                                   src_cm.astype(jnp.float32), 0.0)
-                tiles, _ = spread_pallas_tiles(
-                    None, points_resc, plan, binned=binned, mats=mats,
-                    coords=coords, values_slots=src_cm, geom=geom,
-                    out_vma=out_vma, band_info=band_info)
-                out = dft_truncate_deconvolve_tiled(tiles, plan, geom, b)
-                if pa:
-                    out = jax.lax.psum(out, pa)
-                return out.astype(src.dtype)
-            tiles = amplify_pad_dft_tiled(src, plan, geom)
-            flat = interp_pallas_tiled(
-                tiles, points_resc, plan, geom, binned=binned,
-                mats=mats, coords=coords, chunk_order=True,
-                out_vma=out_vma, band_info=band_info)
-            flat = jnp.where(keep[None, :], flat, 0.0)
-            s = flat.shape[-1]
-            return jnp.moveaxis(flat.reshape(b, 2, s), 1,
-                                -1).astype(src.dtype)
+        if self.transform_type == "type_1":
+            def local_fn(src, mask, arts):
+                _, binned, coords = arts
+                vals = jnp.where(mask[0][None, :] > 0,
+                                 _channel_major(src).astype(jnp.float32),
+                                 0.0)
+                out = planned_spread_modes(vals, coords,
+                                           binned.tile_bounds, plan, geom,
+                                           src.shape[0])
+                return self._reduce_modes(out).astype(src.dtype)
+            return self._shard_map(
+                local_fn, (self._points_spec(), mask_spec),
+                self._grid_spec(), source, self._masks)
 
-        in_spec = (grid_spec if transform_type == "type_2"
-                   else slot_spec)
-        out_spec = (slot_spec if transform_type == "type_2"
-                    else grid_spec)
-        fn = jax.shard_map(local_fn, mesh=self.mesh,
-                           in_specs=(in_spec, arts_spec, P(pa, None)),
-                           out_specs=out_spec, check_vma=check)
-        return fn(source, self._arts, self._masks)
+        def local_fn(src, arts):
+            points_resc, binned, _ = arts
+            values = planned_interp(src, points_resc, plan)
+            flat = binning.to_slots(values, binned)
+            return _planar_rows(flat, src.shape[0]).astype(src.dtype)
+        return self._shard_map(local_fn, (self._grid_spec(),),
+                               self._points_spec(), source)

@@ -2,7 +2,7 @@
 
 The reference implementation builds a C++ ``Plan`` object per op call
 (reference: cc/kernels/nufft_plan.h:223-256, nufft_plan.cc:166-265). In this
-TPU-native framework the plan is a frozen Python dataclass computed once at
+framework the plan is a frozen Python dataclass computed once at
 trace time and cached: every quantity here (upsampling factor, kernel width,
 beta, fine grid dims, kernel Fourier series) is a static constant under
 ``jax.jit``, so XLA sees fully concrete shapes and weights.
@@ -109,7 +109,7 @@ def fit_horner_coeffs(width: int, beta: float,
                       tol: float) -> Tuple[float, ...]:
     """Fits the ES kernel as ONE polynomial in t = 2 (2z/w)^2 - 1.
 
-    TPU-native take on the reference's piecewise-Horner kernel tables
+    A re-design of the reference's piecewise-Horner kernel tables
     (kernel_horner_sigma2.inc, dispatched at nufft_plan.cc:1291-1307):
     piecewise-per-offset polynomials need per-entry piece selection
     (cheap per CUDA thread, expensive on a vector unit), but since the
@@ -258,9 +258,8 @@ def auto_max_batch_size(spec: "PlanSpec",
     """Automatic inner-batch cap: the largest batch whose fine grids fit
     the allocation guard. The reference sizes inner batches per thread
     count (CPU, nufft_plan.cc:211-219) or caps at 8 (GPU,
-    nufft_plan.cu.cc:1923-1928) to bound fine-grid memory; on TPU
-    vectorizing as wide as memory allows is fastest, so the cap is
-    memory-driven."""
+    nufft_plan.cu.cc:1923-1928) to bound fine-grid memory; here the
+    cap is memory-driven: vectorize as wide as the guard allows."""
     plan = make_plan(spec)
     return max(1, int(MAX_ARRAY_SIZE
                       // max(plan.fine_size * channels_per_batch, 1)))

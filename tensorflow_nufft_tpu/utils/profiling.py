@@ -3,7 +3,7 @@
 The reference carries only vestigial FINUFFT knobs here — a ``verbosity``
 option gating printfs (reference: cc/kernels/nufft_options.h:98-100,
 nufft_plan.cc:1060) and a timing ``flags`` field (nufft_plan.h:163-165) —
-and otherwise defers to TensorFlow's profiler. The TPU-native equivalents
+and otherwise defers to TensorFlow's profiler. The JAX equivalents
 (SURVEY §5) are:
 
 - **Named scopes** (``scope``): every pipeline stage (fold/rescale, spread,

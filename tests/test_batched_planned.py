@@ -1,6 +1,5 @@
 """Batched planned transforms (BatchedPlannedNufft): per-batch
-trajectories served at planned speed (VERDICT r4 item 4; reference
-analog: the outer points-batch loop, cc/kernels/nufft_kernels.cc:491).
+trajectories served at planned speed (reference analog: the outer points-batch loop, cc/kernels/nufft_kernels.cc:491).
 
 Pins: batched-planned == per-plan loop (the verdict's "done" bar),
 accuracy vs the dense oracle, gradients through the adjoint-batch VJP,
@@ -136,25 +135,6 @@ def test_from_batch_alias(rng):
     op = PlannedNufft.from_batch(pts, grid,
                                  options=Options(backend="pallas"))
     assert isinstance(op, BatchedPlannedNufft)
-
-
-def test_batched_payload_budget_splits_level(rng):
-    # A stack wide enough that the per-plan share of the mats budget
-    # forces coords ('binned') level, keeping S payload literals under
-    # the compile-body cap; the single-plan level at the same geometry
-    # is 'mats'.
-    grid, m = (32, 32), 600
-    pts = jnp.asarray(random_points(rng, (1, m, 2), np.float32))
-    opts = Options(backend="pallas")
-    single = PlannedNufft(pts[0], grid, options=opts)
-    assert single._level == "mats"
-    from tensorflow_nufft_tpu.kernels.pallas_spread import (
-        mats_payload_bytes, MATS_BYTES_BUDGET)
-    need = mats_payload_bytes(single.geom)
-    s = int(MATS_BYTES_BUDGET // need) + 1
-    wide = BatchedPlannedNufft(
-        jnp.broadcast_to(pts, (s, m, 2)).copy(), grid, options=opts)
-    assert all(sh._level == "binned" for sh in wide._shards)
 
 
 def test_batched_shape_validation(rng):

@@ -1,10 +1,10 @@
-"""Benchmark-suite hardware accuracy gates (VERDICT r4 item 3).
+"""Benchmark-suite device accuracy gates.
 
 Pins the gate machinery itself: a correct output passes, and a
 deliberately perturbed kernel constant (the verdict's bar: "a
 deliberate perturbation test fails at least one gate") fails. Runs the
-same _write_case_ref / _acc_fields helpers bench_suite uses on
-hardware, on a small case on CPU.
+same _write_case_ref / _acc_fields helpers bench_suite uses on the
+GPU, on a small case on CPU.
 """
 
 import sys
@@ -55,9 +55,9 @@ def test_gate_passes_on_correct_output(tiny_case):
 def test_gate_fails_on_perturbed_kernel(tiny_case, monkeypatch):
     # Flip one kernel constant: scale the fitted Horner coefficients of
     # the ES kernel by 1% (the spread/interp evaluation path) while the
-    # deconvolution fseries stays exact — a silent wrong-answer of the
-    # kind round 4's 72^3 Mosaic branch could have produced. The gate
-    # must catch it.
+    # deconvolution fseries stays exact — a silent wrong answer of the
+    # kind a device-only kernel branch could produce. The gate must
+    # catch it.
     pts, src, grid = tiny_case
     import dataclasses
     import tensorflow_nufft_tpu.plan.plan as planmod
@@ -88,8 +88,13 @@ def test_gate_reports_shape_mismatch(tiny_case):
     assert fields["pass"] is False
 
 
-def test_gate_degrades_without_reference(monkeypatch):
-    monkeypatch.setattr(bs, "_ensure_case_ref",
-                        lambda row, key, **kw: None)
-    fields = bs._acc_fields("row", "nokey", np.zeros((2, 2)))
-    assert fields == {"acc_pass": None}
+def test_gate_degrades_without_reference(monkeypatch, tmp_path):
+    """Without a reference the gate fails loudly: a missing reference is
+    an error, not an ungated row."""
+    monkeypatch.setattr(bs, "_ref_path",
+                        lambda key: tmp_path / f"caseref_{key}.npz")
+    monkeypatch.setattr(bs.subprocess, "run",
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            bs.subprocess.CalledProcessError(1, a[0])))
+    with pytest.raises(bs.subprocess.CalledProcessError):
+        bs._acc_fields("row", "nokey", np.zeros((2, 2)))

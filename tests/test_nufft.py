@@ -255,7 +255,7 @@ class TestScaleStress:
         oracle = np.asarray(tfft.nudft(source, points[:sub]))
         err = np.max(np.abs(first[:sub] - oracle)) / np.max(np.abs(oracle))
         # tol is a rough target: width formula overshoots by a small
-        # factor (see BENCH_NOTES); gate an order above like the
+        # factor (see docs/accuracy.md); gate an order above like the
         # reference's CI bound relative to its tolerances
         assert err < 1e-2, err
 

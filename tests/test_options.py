@@ -1,7 +1,6 @@
 """Options model: validation and proto round-trip
 (models nufft_options_test.py:24-48)."""
 
-import pydantic
 import numpy as np
 import pytest
 
@@ -43,23 +42,23 @@ def test_proto_wire_compat():
 
 
 def test_validation():
-    with pytest.raises(pydantic.ValidationError):
+    with pytest.raises(ValueError):
         tfft.Options(max_batch_size=0)
-    with pytest.raises(pydantic.ValidationError):
+    with pytest.raises(ValueError):
         tfft.Options(backend="cuda")
-    with pytest.raises(pydantic.ValidationError):
+    with pytest.raises(ValueError):
         tfft.Options(upsampling_factor=0.9)
 
 
 def test_assignment_validation():
     opts = tfft.Options()
-    with pytest.raises(pydantic.ValidationError):
+    with pytest.raises(ValueError):
         opts.max_batch_size = -1
     opts.max_batch_size = 8
     assert opts.max_batch_size == 8
 
 
-def test_tpu_extension_fields_round_trip():
+def test_extension_fields_round_trip():
     """backend/upsampling_factor survive a proto round-trip; payloads
     using only reference fields stay byte-identical (advisor finding)."""
     o = tfft.Options(backend="xla", upsampling_factor=2.5,

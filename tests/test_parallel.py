@@ -204,10 +204,10 @@ class TestShardedType3:
 
 
 class TestShardedPlanned:
-    """ShardedPlannedNufft: the planned (guru) Pallas pipeline inside
+    """ShardedPlannedNufft: the planned (guru) pipeline inside
     shard_map — per-shard plan artifacts stacked on the points axis.
-    Off-TPU the kernels run in interpret mode; backend='pallas' forces
-    the planned path (otherwise it falls back to sharded_nufft)."""
+    On the CPU the spread kernel runs interpreted; backend='pallas'
+    forces the planned path (otherwise it falls back to sharded_nufft)."""
 
     OPTS = tfft.Options(backend="pallas")
 
@@ -320,14 +320,13 @@ class TestShardedPlanned:
             op(source_t2)   # grid-shaped input to a type-1
 
     def test_mats_level_type1(self, rng):
-        # Large-enough per-shard point count selects the 'mats' plan
-        # level (precomputed ES kernel matrices); the small `problem`
-        # fixtures only exercise the 'binned' level.
+        # A per-shard point count that fills many chunks per tile (the
+        # small `problem` fixtures leave most tiles with one or none).
         m, grid = 4096, (32, 32)
         points = random_points(rng, (m, 2), np.float32)
         mesh = _mesh((2, 4), ("data", "points"))
         op = self._op(points, grid, mesh, transform_type="type_1")
-        assert op._level == "mats"
+        assert op._planned
         src = jnp.asarray(rng.standard_normal((2, m, 2)),
                           dtype=jnp.float32)
         got = op(src)
@@ -341,7 +340,7 @@ class TestShardedPlanned:
         points = random_points(rng, (m, 3), np.float32)
         mesh = _mesh((2, 4), ("data", "points"))
         op = self._op(points, grid, mesh, transform_type="type_1")
-        assert op._level == "binned"
+        assert op._planned
         src = jnp.asarray(rng.standard_normal((2, m, 2)),
                           dtype=jnp.float32)
         got = op(src)

@@ -1,7 +1,6 @@
 """Planar-real API: equivalence with the complex path, gradients,
-matmul-DFT accuracy. This is the TPU execution path (the live TPU backend
-has no complex dtype support), tested here on CPU against the complex
-implementation."""
+matmul-DFT accuracy. The planar pipeline is the one the spread kernel
+serves, tested here on CPU against the complex implementation."""
 
 import jax
 import jax.numpy as jnp
@@ -292,7 +291,7 @@ def test_planned_shape_validation(rng):
 
 
 def test_unplanned_normal_with_weights(rng):
-    # Off-TPU (unplanned) normal() must honor density weights via the
+    # An unplanned normal() must honor density weights via the
     # point-order fallback instead of raising.
     import tensorflow_nufft_tpu as tfft
     from tensorflow_nufft_tpu.planar import to_planar

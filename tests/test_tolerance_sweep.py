@@ -1,4 +1,4 @@
-"""Tolerance conformance sweep (BASELINE config 5): achieved accuracy
+"""Tolerance conformance sweep: achieved accuracy
 tracks the requested tolerance across eps and precisions."""
 
 import numpy as np

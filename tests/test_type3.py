@@ -197,7 +197,7 @@ class TestType3Errors:
 
 
 # ---------------------------------------------------------------------------
-# Planar (TPU-native layout) type-3.
+# Planar type-3.
 # ---------------------------------------------------------------------------
 
 
@@ -279,21 +279,18 @@ def test_planar_type3_errors(rng):
                               t.astype(np.float64))
 
 
-@pytest.mark.parametrize("level_budget", ["mats", "binned"])
-def test_planar_type3_pallas_spread_path(rng, monkeypatch, level_budget):
-    # Force the planned Pallas spread branch (interpret mode on CPU) and
+@pytest.mark.parametrize("rank", [2, 3])
+def test_planar_type3_pallas_spread_path(rng, rank):
+    # Force the planned spread-kernel branch (interpreted on CPU) and
     # check it against the XLA-spread branch.
-    if level_budget == "binned":
-        from tensorflow_nufft_tpu.kernels import pallas_spread
-        monkeypatch.setattr(pallas_spread, "MATS_BYTES_BUDGET", 0)
-    x, t = _random_sets(rng, 2, 300, 200, np.float32)
+    x, t = _random_sets(rng, rank, 300, 200, np.float32)
     c = to_planar(random_complex(rng, (300,), np.complex64))[None]
     plan_p = tfft.planar.Type3Plan(
         x, t, tol=1e-5, options=tfft.Options(backend="pallas"))
-    assert plan_p._spread_level == level_budget
+    assert plan_p._spread_planned
     plan_x = tfft.planar.Type3Plan(
         x, t, tol=1e-5, options=tfft.Options(backend="xla"))
-    assert plan_x._spread_level == "none"
+    assert not plan_x._spread_planned
     got_p = np.asarray(plan_p(c))
     got_x = np.asarray(plan_x(c))
     np.testing.assert_allclose(got_p, got_x, rtol=1e-5,
@@ -413,15 +410,10 @@ def test_planar_type3_max_batch_size_chunking(rng):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_type3_rank3_traced_construction_pallas(rng, monkeypatch):
+def test_type3_rank3_traced_construction_pallas(rng):
     """One-shot planar type-3 under an OUTER jit builds its inner
-    type-2 plan on traced (rescaled) targets: banding must be skipped
-    (compute_band_origins is an eager numpy pass) and the unbanded
-    re-plan must serve (round-4 hardware regression: the 3d_t3 suite
-    case crashed with TracerArrayConversionError at
-    PlannedNufft._set_artifacts)."""
-    from tensorflow_nufft_tpu.kernels import pallas_spread
-    monkeypatch.setattr(pallas_spread, "MATS_BYTES_BUDGET", 0)
+    type-2 plan on traced (rescaled) targets: the plan's artifacts are
+    tracers of the outer trace and must serve within it."""
     m, k = 1500, 1500
     pts = jnp.asarray(rng.uniform(-np.pi, np.pi, (m, 3)).astype(np.float32))
     tgt = jnp.asarray(rng.uniform(-16, 16, (k, 3)).astype(np.float32))
@@ -442,38 +434,13 @@ def test_type3_rank3_traced_construction_pallas(rng, monkeypatch):
     assert err < 1e-3, err
 
 
-class TestTileFriendlySizing:
-    """Round-5: type-3 fine grids round to tile-friendly 5-smooth
-    sizes (the fine grid is matmul-DFT-served, never FFT'd; plain
-    5-smooth sizes like 270 carry no 32/64 divisor and degenerate the
-    inner type-2 geometry — BENCH_NOTES round 5)."""
+class TestPlanarPlan:
+    """Planar type-3 plan with both stages planned."""
 
-    def test_next_tile_friendly_values(self):
-        from tensorflow_nufft_tpu.ops.type3 import _next_tile_friendly
-        from tensorflow_nufft_tpu.utils.smooth import (
-            next_smooth_integer)
-        assert _next_tile_friendly(270, 2) == 288
-        assert _next_tile_friendly(288, 2) == 288
-        assert _next_tile_friendly(72, 3) == 72
-        assert _next_tile_friendly(90, 3) == 96
-        for n in (17, 100, 255, 513, 1000):
-            for rank in (1, 2, 3):
-                m = _next_tile_friendly(n, rank)
-                step = 32 if rank <= 2 else 8
-                assert m >= n and m % step == 0
-                assert next_smooth_integer(m) == m, (n, rank, m)
-
-    def test_statics_sizes_are_tile_friendly(self, rng):
-        from tensorflow_nufft_tpu.ops.type3 import compute_type3_statics
-        x = rng.uniform(-np.pi, np.pi, (500, 2))
-        t = rng.uniform(-64.0, 64.0, (500, 2))
-        st = compute_type3_statics(x, t, "forward", 1e-6)
-        assert all(n % 32 == 0 for n in st.fine_shape), st.fine_shape
-
-    def test_planar_plan_budget_split(self, rng):
-        # Both stages' payloads share one compile-literal budget; at
-        # small scale both fit (mats/mats) and the plan must still
-        # match the dense oracle.
+    def test_planar_plan_matches_oracle(self, rng):
+        # Both stages planned (binned outer spread, binned inner
+        # type-2) on a tile-friendly fine grid: matches the dense
+        # oracle.
         import jax.numpy as jnp
         from tensorflow_nufft_tpu.options.options import Options
         from tensorflow_nufft_tpu.planar import (
@@ -484,7 +451,7 @@ class TestTileFriendlySizing:
              + 1j * rng.standard_normal(800)).astype(np.complex64)
         src = jnp.asarray(to_planar(z))[None]
         op = Type3Plan(x, t, options=Options(backend="pallas"))
-        assert op._spread_level in ("mats", "binned")
+        assert op._spread_planned and op._inner_t2._planned
         got = np.asarray(op(src))[0]
         want = np.asarray(nudft_type3(src[0], jnp.asarray(x),
                                       jnp.asarray(t)))
